@@ -1,0 +1,139 @@
+"""Port parity: the Residual flow phi on weights converted from shwd_tpu."""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shwd_torch.flows import make_flow as t_make_flow
+from shwd_torch.utils.convert import load_phi, phi_tree
+from shwd_tpu.flows import make_flow as j_make_flow
+
+
+def _jax_phi(layers=2, seed=0, scale_last=True):
+    """A JAX phi with numpy leaves. ``scale_last`` undoes the /1000 init of
+    each block's last layer so the nonlinear part is not negligible."""
+    flow = j_make_flow("Residual", layers)
+    params, state = flow.init(jax.random.PRNGKey(seed))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    if scale_last:
+        params = tuple(block[:-1] + ({**block[-1], "w": block[-1]["w"] * 1000},)
+                       for block in params)
+    return flow, params, state
+
+
+@pytest.fixture(scope="module")
+def jax_phi():
+    return _jax_phi()
+
+
+@pytest.fixture(scope="module")
+def skeleton():
+    return t_make_flow("Residual", 2)
+
+
+@pytest.fixture
+def pair(jax_phi, skeleton):
+    """(JAX flow, params, state, the port's flow loaded from them)."""
+    jflow, params, state = jax_phi
+    return jflow, params, state, load_phi(copy.deepcopy(skeleton),
+                                          params, state)
+
+
+def test_convert_round_trip(pair):
+    _, params, state, tflow = pair
+    p2, s2 = phi_tree(tflow)
+    for a, b in zip(jax.tree_util.tree_leaves((params, state)),
+                    jax.tree_util.tree_leaves((p2, s2))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_forward_matches_jax(pair):
+    """phi(x) on converted weights, f32: atol 1e-6."""
+    jflow, params, state, tflow = pair
+    x = np.random.default_rng(0).normal(size=(2, 30, 3)).astype(np.float32)
+    want = np.asarray(jflow(params, state, jnp.asarray(x)))
+    got = tflow(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_parameter_gradients_match_jax(pair):
+    """Gradient of a scalar loss wrt every parameter (w, b, beta of every
+    layer): atol 1e-5 / rtol 1e-5 (f32 backward in another op order)."""
+    jflow, params, state, tflow = pair
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(1, 40, 3)).astype(np.float32)
+    t = rng.normal(size=(1, 40, 3)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum((jflow(p, state, jnp.asarray(x)) - t) ** 2)
+
+    jgrads = jax.jit(jax.grad(jloss))(jax.tree_util.tree_map(jnp.asarray, params))
+    loss = torch.sum((tflow(torch.from_numpy(x)) - torch.from_numpy(t)) ** 2)
+    loss.backward()
+    layers = [layer for block in tflow.flows for layer in block.net.layers]
+    jflat = [layer for block in jgrads for layer in block]
+    assert len(layers) == len(jflat) == 2 * 7
+    for layer, jg in zip(layers, jflat):
+        for name in ("w", "b", "beta"):
+            np.testing.assert_allclose(getattr(layer, name).grad.numpy(),
+                                       np.asarray(jg[name]),
+                                       atol=1e-5, rtol=1e-5)
+
+
+def test_power_iteration_matches_jax(pair):
+    """One power-iteration update of every (u, v) in place: atol 1e-6."""
+    jflow, params, state, tflow = pair
+    params = tuple(tuple({**p, "w": p["w"] + 0.05} for p in block)
+                   for block in params)     # move w so u, v must change
+    load_phi(tflow, params, state)
+    want = jax.jit(jflow.update_state, static_argnums=2)(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, state), 1)
+    tflow.update_state(1)
+    _, got = phi_tree(tflow)
+    moved = 0.0
+    for a, b, s0 in zip(jax.tree_util.tree_leaves(want),
+                        jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(state)):
+        np.testing.assert_allclose(b, np.asarray(a), atol=1e-6, rtol=0)
+        moved = max(moved, float(np.abs(b - s0).max()))
+    assert moved > 1e-4
+
+
+def test_inverse_round_trip_and_matches_jax(pair):
+    """inverse(phi(x)) == x (atol 1e-5, the fixed point's tolerance), and
+    equals the JAX inverse (atol 1e-5)."""
+    jflow, params, state, tflow = pair
+    x = np.random.default_rng(2).normal(size=(25, 3)).astype(np.float32)
+    y = tflow(torch.from_numpy(x)).detach()
+    back = tflow.inverse(y).numpy()
+    np.testing.assert_allclose(back, x, atol=1e-5, rtol=0)
+    jback = np.asarray(jflow.inverse(params, state, jnp.asarray(y.numpy())))
+    np.testing.assert_allclose(back, jback, atol=1e-5, rtol=0)
+
+
+def test_fresh_init_is_a_contraction_near_identity():
+    """The port's own init: beta 0.5, u, v converged to the top singular
+    pair, last weight ~zero, so phi starts as the identity plus the last
+    layers' biases (a constant shift)."""
+    g = torch.Generator().manual_seed(0)
+    flow = t_make_flow("Residual", 3, generator=g)
+    for block in flow.flows:
+        for layer in block.net.layers:
+            assert float(layer.beta.detach()) == 0.5
+            sigma = torch.linalg.matrix_norm(layer.w.detach(), ord=2)
+            est = layer.u @ (layer.w.detach() @ layer.v)
+            np.testing.assert_allclose(float(est), float(sigma), rtol=1e-3)
+    x = torch.randn(10, 3, generator=g)
+    shift = (flow(x) - x).detach()
+    assert float(torch.abs(shift - shift[0]).max()) < 1e-2
+
+
+def test_planar_is_a_later_slice():
+    with pytest.raises(NotImplementedError):
+        t_make_flow("Planar", 2)

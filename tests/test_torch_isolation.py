@@ -1,0 +1,34 @@
+"""The port imports no JAX: every module of shwd_torch, its tools and
+chip_smoke.py."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "shwd_tpu"}
+FILES = (sorted((ROOT / "shwd_torch").rglob("*.py"))
+         + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"])
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_module_is_checked():
+    names = {p.name for p in FILES}
+    assert {"chip_smoke.py", "auction.py", "sinkhorn_kernels.py",
+            "flow_driver.py", "shwd.py"} <= names
