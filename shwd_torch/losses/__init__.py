@@ -1,4 +1,5 @@
-"""Transport distances and the SHWD criterion."""
+"""Transport distances, the SHWD criterion and the baseline criteria."""
 
+from .baselines import chamfer_criterion, make_sinkhorn_criterion  # noqa: F401
 from .shwd import SHWDConfig, SHWDLoss, SHWDState, sphere_regularizer  # noqa: F401
 from .transport import TransportConfig, make_transport  # noqa: F401

@@ -2,6 +2,9 @@
 
 Counterpart of ``shwd_tpu/losses/transport.py``. Ported solvers:
 
+- 'sinkhorn': eps-scaled log-Sinkhorn from the raw clouds; on the card the
+  fused cost-plus-Sinkhorn kernel (``ops.sinkhorn_fused.emd2_points``);
+- 'sinkhorn_div': the debiased Sinkhorn divergence;
 - 'hybrid': annealed-Sinkhorn duals warm-start the auction, which returns
   the exact permutation (the flow's exact-EMD path);
 - 'auction': the auction from cold prices;
@@ -17,12 +20,11 @@ import torch
 
 from ..ops.auction import auction_emd2, hybrid_emd2
 from ..ops.costs import cost_matrix as build_cost
-from ..ops.sinkhorn import sinkhorn_log
+from ..ops.sinkhorn import sinkhorn_divergence_cost, sinkhorn_log
+from ..ops.sinkhorn_fused import emd2_points
 
 # solvers of the JAX package that a later slice brings
 _LATER = {
-    "sinkhorn": "slice 2 (the fused cost-plus-Sinkhorn kernel)",
-    "sinkhorn_div": "a later slice (Queue 1, transport and loss)",
     "exact": "a later slice (the differentiable exact-EMD bridge)",
     "ssw": "a later slice (the SSW family)",
 }
@@ -32,7 +34,8 @@ _LATER = {
 class TransportConfig:
     cost: str = "lp"            # 'lp' | 'cosine' | 'geodesic'
     p: float = 2.0
-    # 'hybrid' | 'auction' | 'sinkhorn_fast' here; see _LATER for the rest
+    # 'sinkhorn' | 'sinkhorn_div' | 'sinkhorn_fast' | 'auction' | 'hybrid'
+    # here; see _LATER for the rest
     solver: str = "sinkhorn"
     eps: float = 5e-3
     num_iters: int = 50
@@ -58,23 +61,35 @@ def make_transport(cfg: TransportConfig) -> Callable:
     if cfg.solver in _LATER:
         raise NotImplementedError(
             f"solver {cfg.solver!r} is ported in {_LATER[cfg.solver]}")
-    if cfg.solver not in ("hybrid", "auction", "sinkhorn_fast"):
+    if cfg.solver not in ("sinkhorn", "sinkhorn_div", "hybrid", "auction",
+                          "sinkhorn_fast"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
 
     def w(x, y):
         batched = x.ndim == 3
-        c = build_cost(x, y, cfg.cost, cfg.p)
         if not batched:
-            c = c[None]
-        if cfg.solver == "sinkhorn_fast":
-            val, _, _ = sinkhorn_log(c, eps=cfg.eps, num_iters=cfg.num_iters)
-        elif cfg.solver == "auction":
-            val = auction_emd2(c, 1e-7)
+            x, y = x[None], y[None]
+        if cfg.solver == "sinkhorn":
+            # the fused kernel for CUDA tensors, emd2_approx elsewhere
+            val = emd2_points(x, y, cfg.cost, cfg.p, eps=cfg.eps,
+                              num_iters=cfg.num_iters,
+                              num_scales=cfg.num_scales)
+        elif cfg.solver == "sinkhorn_div":
+            val = sinkhorn_divergence_cost(
+                build_cost(x, y, cfg.cost, cfg.p),
+                build_cost(x, x, cfg.cost, cfg.p),
+                build_cost(y, y, cfg.cost, cfg.p),
+                eps=cfg.eps, num_iters=cfg.num_iters,
+                num_scales=cfg.num_scales)
         else:
-            val = hybrid_emd2(c, 1e-7, cfg.eps, cfg.num_iters, cfg.num_scales)
-        if not batched:
-            val = val[0]
+            c = build_cost(x, y, cfg.cost, cfg.p)
+            if cfg.solver == "sinkhorn_fast":
+                val, _, _ = sinkhorn_log(c, eps=cfg.eps, num_iters=cfg.num_iters)
+            elif cfg.solver == "auction":
+                val = auction_emd2(c, 1e-7)
+            else:
+                val = hybrid_emd2(c, 1e-7, cfg.eps, cfg.num_iters, cfg.num_scales)
         val = torch.clamp_min(val, 1e-30) ** (1.0 / cfg.p)
-        return reduce_batch(val, cfg.reduce) if batched else val
+        return reduce_batch(val, cfg.reduce) if batched else val[0]
 
     return w

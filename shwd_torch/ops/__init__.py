@@ -1,12 +1,19 @@
 """Transport ops: costs, samplers, Sinkhorn, the auction and the exact oracle.
 
-The two CUDA kernels of this slice sit behind ``emd2_warmup``
-(``sinkhorn_kernels``) and ``auction_assignment`` (``auction``).
+The CUDA kernels sit behind ``emd2_warmup`` (``sinkhorn_kernels``),
+``auction_assignment`` (``auction``), ``sinkhorn_points``
+(``sinkhorn_points``) and ``chamfer_tiled`` (``chamfer``).
 """
 
 from .costs import (cost_matrix, cosine_cost, cosine_similarity,  # noqa: F401
                     geodesic_cost, lp_cost, sqeuclidean_cost)
-from .sinkhorn import emd2_approx, sinkhorn_log  # noqa: F401
+from .sinkhorn import (emd2_approx, sinkhorn_divergence_cost,  # noqa: F401
+                       sinkhorn_log, sinkhorn_loss)
+from .sinkhorn_fused import (emd2_points, fused_supported,  # noqa: F401
+                              sinkhorn_points, sinkhorn_points_reference)
+from .chamfer import (chamfer, chamfer_directional, chamfer_tiled,  # noqa: F401
+                      chamfer_tiled_reference)
+from . import quaternion  # noqa: F401
 from .sinkhorn_kernels import (emd2_warmup, emd2_warmup_reference,  # noqa: F401
                                warmup_supported)
 from .auction import (auction_assignment, auction_assignment_reference,  # noqa: F401

@@ -1,12 +1,15 @@
 """Log-domain Sinkhorn and the near-exact EMD surrogate.
 
 Counterpart of ``shwd_tpu/ops/sinkhorn.py``: ``sinkhorn_log``,
-``_plan_cost`` and ``emd2_approx``. Gradients treat the transport plan as
+``_plan_cost``, ``emd2_approx``, ``sinkhorn_divergence_cost`` and
+``sinkhorn_loss``. Gradients treat the transport plan as
 constant (envelope theorem): the plan is detached, which matches the
 exact-EMD gradient. Fixed iteration counts; the loops are Python loops.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,9 +71,9 @@ def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
     eps0 = torch.clamp_min(torch.amax(torch.abs(cost)), 1e-30).detach()
     ratios = torch.linspace(0.0, 1.0, num_scales, dtype=cost.dtype,
                             device=cost.device)
-    eps_sched = torch.exp(torch.log(eps0) * (1 - ratios)
-                          + torch.log(torch.tensor(eps, dtype=cost.dtype,
-                                                   device=cost.device)) * ratios)
+    # log(eps) as a Python number: a device tensor made from it would be a
+    # synchronising host-to-device copy
+    eps_sched = torch.exp(torch.log(eps0) * (1 - ratios) + math.log(eps) * ratios)
     f = torch.zeros_like(a)
     g = torch.zeros_like(b)
     for s in range(num_scales):
@@ -82,3 +85,36 @@ def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
     if return_potentials:
         return val, f, g
     return val
+
+
+def sinkhorn_divergence_cost(c_xy: torch.Tensor, c_xx: torch.Tensor,
+                             c_yy: torch.Tensor, eps: float = 5e-3,
+                             num_iters: int = 50, num_scales: int = 4
+                             ) -> torch.Tensor:
+    """Debiased entropic OT: S = W(x,y) - (W(x,x) + W(y,y)) / 2, clamped at 0.
+
+    The sharp entropic cost <P, C> has an O(eps) bias floor when the two
+    measures are close: the plan blurs over an eps-ball, so the surrogate
+    (and its gradient) stops resolving differences below that scale. The
+    divergence subtracts the same floor via the self-transport terms and is
+    zero iff the measures coincide.
+    """
+    kw = dict(eps=eps, num_iters=num_iters, num_scales=num_scales)
+    v_xy = emd2_approx(c_xy, **kw)
+    v_xx = emd2_approx(c_xx, **kw)
+    v_yy = emd2_approx(c_yy, **kw)
+    return torch.clamp_min(v_xy - 0.5 * (v_xx + v_yy), 0.0)
+
+
+def sinkhorn_loss(x: torch.Tensor, y: torch.Tensor, eps: float = 0.01,
+                  num_iters: int = 100, p: float = 2,
+                  wasserstein_root: bool = False) -> torch.Tensor:
+    """Sinkhorn loss between point clouds with Lp ground cost, batch-meaned.
+    With ``wasserstein_root`` the per-item cost is raised to 1/p."""
+    from .costs import lp_cost
+
+    c = lp_cost(x, y, p)
+    val, _, _ = sinkhorn_log(c, eps=eps, num_iters=num_iters)
+    if wasserstein_root:
+        val = val ** (1.0 / p)
+    return torch.mean(val)

@@ -2,8 +2,8 @@
 
 Counterpart of ``shwd_tpu/train/flow_driver.py`` for ``method="SHWD"``:
 the evolving cloud's coordinates are the parameters, Adam descends SHWD
-toward a fixed target, and exact W2 is recorded every ``eval_interval``
-iterations. The step runs on the device without host syncs; each interval
+toward a fixed target, and exact W2 (or, with ``eval_metric="cd"``, the
+Chamfer distance) is recorded every ``eval_interval`` iterations. The step runs on the device without host syncs; each interval
 ends in ``torch.cuda.synchronize()`` so ``interval_seconds`` covers the
 steps and not the eval.
 """
@@ -22,6 +22,7 @@ from ..device import resolve_device
 from ..flows import make_flow
 from ..losses.shwd import SHWDConfig, SHWDLoss
 from ..losses.transport import TransportConfig
+from ..ops.chamfer import chamfer_tiled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +47,7 @@ class FlowConfig:
     # regardless, so this schedule only trades Sinkhorn time for sweeps
     hybrid_warmup_iters: int = 40
     hybrid_warmup_scales: int = 8
-    eval_metric: str = "w2"        # 'w2' exact EMD ('cd' comes later)
+    eval_metric: str = "w2"        # 'w2' exact EMD | 'cd' chamfer
     # cosine-decay the point LR to lr * lr_decay_alpha over the run
     # (1.0 = constant LR)
     lr_decay_alpha: float = 1.0
@@ -123,15 +124,22 @@ def run_flow(source, target, cfg: FlowConfig,
     interval. Runs on the card unless ``device="cpu"``.
 
     ``eval_fn(points, target) -> float`` (numpy arguments) defaults to exact
-    W2 (the scipy assignment on the host).
+    W2 (the scipy assignment on the host), or for ``eval_metric="cd"`` to
+    the Chamfer distance on the device. The metric needs no gradient, so it
+    is the forward-only tiled Chamfer (the CUDA kernel on the card).
     """
     dev = resolve_device(device)
     if eval_fn is None:
-        if cfg.eval_metric != "w2":
-            raise NotImplementedError(
-                f"eval metric {cfg.eval_metric!r} is ported in a later slice")
-        from ..ops.emd_exact import w2_exact
-        eval_fn = w2_exact
+        if cfg.eval_metric == "cd":
+            def eval_fn(p, t):
+                p, t = (torch.as_tensor(a, dtype=torch.float32, device=dev)[None]
+                        for a in (p, t))
+                return float(chamfer_tiled(p, t))
+        elif cfg.eval_metric == "w2":
+            from ..ops.emd_exact import w2_exact
+            eval_fn = w2_exact
+        else:
+            raise ValueError(f"unknown eval metric {cfg.eval_metric!r}")
 
     init_state, step = _make_loss_step(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)

@@ -1,0 +1,316 @@
+"""Registration trainers: W_COS (flagship), W1_COS, CD, Sinkhorn.
+
+Counterpart of ``shwd_tpu/train/trainer.py``: per epoch a train pass and a
+validation pass, three best-checkpoint families (val loss / rotation error /
+translation error) plus the optional combined one, metrics logged per
+epoch, full resume.
+
+How the port differs from the JAX package's functional trainer:
+- the model, phi and both optimizers are modules updated in place, so the
+  ``TrainState`` is one mutable object and a best-so-far snapshot is a
+  copy (``utils.checkpoint.state_payload``) taken at the improving epoch;
+- the model's gradient is taken with respect to the PCRNet parameters only
+  (``torch.autograd.grad``); phi's ``.grad`` is filled by the inner ascent
+  objective alone;
+- a train step makes no host sync: the epoch's loss is accumulated on the
+  device and read once per epoch (every step only under ``nan_guard``);
+- one epoch loop (the JAX package's fused epoch is a jit device).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..data.dataset import RegistrationDataset
+from ..data.transforms import RegistrationBatch
+from ..device import resolve_device
+from ..flows import make_flow
+from ..losses import SHWDLoss, chamfer_criterion, make_sinkhorn_criterion
+from ..models import PCRNet
+from ..ops.quaternion import rotation_error_deg, translation_error
+from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_payload
+from ..utils.logging import RunLogger
+from ..utils.optim import torch_adam
+from .config import TrainConfig
+
+_LATER = {
+    "pseudo_w_cos": "Queue 1 item 6 (the Pseudo-SHWD criterion)",
+    "max_ssw": "Queue 1 item 4 (the SSW family)",
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: PCRNet
+    opt: torch.optim.Adam
+    crit_state: Any             # SHWDState, or None for stateless criteria
+    epoch: int = 0
+
+
+def _mean_subtract(batch: RegistrationBatch):
+    """Both clouds centered; the translation ground truth is shifted by the
+    source mean (used in eval)."""
+    src_mean = torch.mean(batch.source, dim=1, keepdim=True)
+    tgt_mean = torch.mean(batch.target, dim=1, keepdim=True)
+    source = batch.source - src_mean
+    target = batch.target - tgt_mean
+    translation = batch.igt_translation - src_mean[:, 0, :]
+    return source, target, translation
+
+
+def build_criterion(cfg: TrainConfig):
+    """Returns (init_state(generator), criterion(crit_state, x, y, train) ->
+    ((loss, sx, sy), crit_state))."""
+    name = cfg.criterion
+    if name in ("w_cos", "w1_cos"):
+        shwd_cfg = cfg.shwd
+        if name == "w1_cos":
+            shwd_cfg = dataclasses.replace(
+                shwd_cfg, transport=dataclasses.replace(shwd_cfg.transport, p=1.0))
+        crit = SHWDLoss(
+            lambda g: make_flow(cfg.flow_name, cfg.phi_num_flow_layer, generator=g),
+            shwd_cfg)
+        return crit.init, crit.apply
+    if name in _LATER:
+        raise NotImplementedError(
+            f"criterion {name!r} is not ported yet: ROADMAP {_LATER[name]}")
+    if name == "cd":
+        def apply(state, x, y, train=True):
+            return chamfer_criterion(x, y), state
+        return (lambda generator: None), apply
+    if name == "sinkhorn":
+        base = make_sinkhorn_criterion(cfg.sinkhorn_eps, cfg.sinkhorn_iter)
+
+        def apply(state, x, y, train=True):
+            return base(x, y), state
+        return (lambda generator: None), apply
+    raise ValueError(f"unknown criterion {name!r}")
+
+
+class Trainer:
+    """``Trainer(cfg).fit(dataset)`` runs on the card unless ``device``
+    names the CPU."""
+
+    def __init__(self, cfg: TrainConfig,
+                 device: str | torch.device | None = None):
+        if cfg.mesh_data is not None or cfg.mesh_slices > 1:
+            raise NotImplementedError(
+                "multi-device training is not ported yet: ROADMAP Queue 1 "
+                "item 14 (the parallel layer)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.crit_init, self.crit_apply = build_criterion(cfg)
+        self._early_stop_enabled = (cfg.criterion in ("w_cos", "w1_cos")
+                                    and cfg.shwd.early_stop_strikes > 0)
+
+    # -- steps ---------------------------------------------------------------
+
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        """A fresh state drawn from ``generator`` (on the trainer's device)."""
+        model = PCRNet(generator=generator)
+        # coupled-L2 Adam, as torch.optim.Adam(lr, weight_decay)
+        opt = torch_adam(model.parameters(), self.cfg.lr, self.cfg.weight_decay)
+        return TrainState(model, opt, self.crit_init(generator), 0)
+
+    def _train_step(self, state: TrainState, batch: RegistrationBatch
+                    ) -> torch.Tensor:
+        """PCRNet forward, the criterion (with phi's inner ascent step) and
+        the model's Adam step, in place. Returns the detached loss."""
+        source, target, _ = _mean_subtract(batch)
+        out = state.model(target, source, self.cfg.pcr_iteration_num)
+        (loss, _, _), state.crit_state = self.crit_apply(
+            state.crit_state, target, out.transformed_source, True)
+        params = list(state.model.parameters())
+        # the PCRNet parameters only: phi is a constant of this forward
+        grads = torch.autograd.grad(loss, params)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _eval_step(self, state: TrainState, batch: RegistrationBatch):
+        """Validation pass of one batch: loss in test mode + pose errors."""
+        source, target, translation = _mean_subtract(batch)
+        out = state.model(target, source, self.cfg.pcr_iteration_num)
+        (loss, _, _), _ = self.crit_apply(
+            state.crit_state, target, out.transformed_source, False)
+        rot_err = rotation_error_deg(batch.igt_rotation, out.est_R)
+        trans_err = translation_error(batch.igt_rotation, translation,
+                                      out.est_t[:, 0, :])
+        return torch.stack([loss, torch.mean(rot_err), torch.mean(trans_err)])
+
+    # -- epochs ----------------------------------------------------------------
+
+    def train_one_epoch(self, state, dataset, indices, generator, rng):
+        total = torch.zeros((), device=self.device)
+        count = 0
+        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                     shuffle=True, rng=rng):
+            pre = state_payload(state) if self.cfg.nan_guard else None
+            loss = self._train_step(state, batch)
+            if self.cfg.nan_guard and not np.isfinite(float(loss)):
+                self._dump_nan_forensics(pre, state.epoch, batch, float(loss))
+            total = total + loss
+            count += 1
+        return state, float(total) / max(count, 1)
+
+    def _dump_nan_forensics(self, pre_state: dict, epoch: int, batch, loss):
+        """Persist the offending inputs and the pre-step train state (incl.
+        phi and its optimizer), then raise."""
+        dump_dir = Path(self.cfg.log_dir) / self.cfg.experiment / "nan_dump"
+        dump_dir.mkdir(parents=True, exist_ok=True)
+        np.savez(dump_dir / "batch.npz",
+                 **{k: v.detach().cpu().numpy() for k, v in batch._asdict().items()})
+        save_checkpoint(dump_dir / "state_pre_step", pre_state, epoch)
+        raise FloatingPointError(
+            f"non-finite train loss ({loss}); batch and pre-step state "
+            f"dumped to {dump_dir}")
+
+    def eval_one_epoch(self, state, dataset, indices, generator):
+        """Sample-weighted validation means over ALL val items.
+
+        Uses drop_remainder=False so a val split smaller than batch_size
+        still evaluates; raises rather than silently returning 0.0 when
+        there is nothing to evaluate.
+        """
+        sums = torch.zeros(3, device=self.device)
+        n_items = 0
+        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                     shuffle=False, drop_remainder=False):
+            b = batch.source.shape[0]
+            sums = sums + self._eval_step(state, batch) * b
+            n_items += b
+        if n_items == 0:
+            raise ValueError(
+                "validation set produced no batches: check val_split / "
+                "batch_size (eval never drops remainders, so this means the "
+                "val index set itself is empty)")
+        loss, rot, trans = (sums / n_items).tolist()
+        return loss, rot, trans
+
+    # -- full run ----------------------------------------------------------------
+
+    def fit(self, train_ds: RegistrationDataset,
+            val_ds: Optional[RegistrationDataset] = None,
+            verbose: bool = True) -> dict:
+        cfg = self.cfg
+        log_dir = Path(cfg.log_dir) / cfg.experiment
+        models_dir = log_dir / "models"
+        models_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save(log_dir / "config.json")
+        logger = RunLogger(log_dir)
+
+        rng = np.random.default_rng(cfg.seed)
+        gen_init = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        gen_data = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        state = self.init_state(gen_init)
+
+        if cfg.load_model and cfg.load_model != "None":
+            state, start_epoch = load_checkpoint(cfg.load_model, state)
+        else:
+            start_epoch = 0
+
+        if val_ds is None:
+            train_idx, val_idx = train_ds.train_val_indices(rng)
+            val_src = train_ds
+        else:
+            train_idx = np.arange(len(train_ds))
+            val_idx = np.arange(len(val_ds))
+            val_src = val_ds
+
+        best = {"loss": np.inf, "rot": np.inf, "trans": np.inf,
+                "combined": np.inf}
+        # Best-state snapshots are copies on the device, taken at the
+        # improving epoch (the live state keeps changing in place); disk
+        # flushes happen every cfg.checkpoint_flush_every epochs and at the
+        # end of fit.
+        snap_files = {"loss": "best_model_snap", "rot": "best_rot_error_snap",
+                      "trans": "best_trans_error_snap",
+                      "combined": "best_combined_snap"}
+        pending_snaps: dict = {}
+
+        def flush_snaps():
+            for fam, (payload, ep) in pending_snaps.items():
+                save_checkpoint(models_dir / snap_files[fam], payload, ep)
+            pending_snaps.clear()
+
+        history = []
+        # exception/^C-safe flush: a SIGTERM-killed or crashed run still
+        # writes every best state tracked so far; only SIGKILL can lose
+        # improvements since the last periodic flush. SIGTERM does not
+        # unwind Python frames by default, so it becomes KeyboardInterrupt
+        # for the duration of the fit.
+        def _term(signum, frame):
+            raise KeyboardInterrupt("SIGTERM")
+
+        try:
+            old_term = signal.signal(signal.SIGTERM, _term)
+            term_installed = True
+        except ValueError:          # not the main thread
+            old_term, term_installed = None, False
+        try:
+            for epoch in range(start_epoch, cfg.num_epochs):
+                t0 = time.perf_counter()
+                state.epoch = epoch
+                state, train_loss = self.train_one_epoch(
+                    state, train_ds, train_idx, gen_data, rng)
+                # the epoch's loss was read on the host: the card is idle
+                train_dt = time.perf_counter() - t0
+                val_loss, rot_err, trans_err = self.eval_one_epoch(
+                    state, val_src, val_idx, gen_data)
+                dt = time.perf_counter() - t0
+                state.epoch = epoch + 1
+
+                improved = val_loss < best["loss"]
+                if not improved and self._early_stop_enabled:
+                    # a non-improving epoch counts a strike; past the limit
+                    # the SHWD inner adversarial loop is skipped
+                    state.crit_state.strikes += 1
+                marks = {"loss": val_loss, "rot": rot_err, "trans": trans_err}
+                if cfg.checkpoint_combined_weight > 0:
+                    marks["combined"] = (
+                        rot_err + cfg.checkpoint_combined_weight * trans_err)
+                payload = None
+                for fam, value in marks.items():
+                    if value < best[fam]:
+                        best[fam] = value
+                        if payload is None:
+                            payload = state_payload(state)
+                        pending_snaps[fam] = (payload, epoch + 1)
+                if (cfg.checkpoint_flush_every
+                        and (epoch + 1) % cfg.checkpoint_flush_every == 0):
+                    flush_snaps()
+
+                row = dict(epoch=epoch + 1, train_loss=train_loss,
+                           val_loss=val_loss, best_loss=best["loss"],
+                           rot_error=rot_err, best_rot_error=best["rot"],
+                           trans_error=trans_err,
+                           best_trans_error=best["trans"], seconds=dt,
+                           train_seconds=train_dt,
+                           train_steps=len(train_idx) // cfg.batch_size)
+                history.append(row)
+                logger.log(row)
+                if verbose:
+                    print(f"EPOCH:: {epoch+1}, Training Loss: "
+                          f"{train_loss*100:.4f}, Val Loss: {val_loss*100:.4f},"
+                          f" Rot error: {rot_err:.3f},"
+                          f" Trans error: {trans_err:.4f}, Time: {dt:.2f}s")
+        finally:
+            flush_snaps()
+            logger.close()
+            if term_installed:
+                # restore keyed on "we installed", not "old was non-None"
+                # (signal.signal returns None when the previous disposition
+                # was set outside Python)
+                signal.signal(signal.SIGTERM,
+                              old_term if old_term is not None
+                              else signal.SIG_DFL)
+        return {"best": best, "history": history, "state": state}

@@ -82,6 +82,27 @@ def test_run_flow_on_cpu_returns_a_flow_result():
     assert res.steps_per_second > 0
 
 
+def test_run_flow_cd_eval_metric_matches_jax_chamfer():
+    """eval_metric="cd" records the Chamfer distance of the evolving cloud:
+    the first value against the JAX package's dense chamfer on the same
+    clouds, the last against it on the returned cloud (rtol 1e-5: the
+    tiled minima of direct differences against the dense x2+y2-2xy)."""
+    from shwd_tpu.ops.chamfer import chamfer as j_chamfer
+    src, tgt = _clouds(48, seed=2)
+    cfg = tf.FlowConfig(**{**CFG, "num_iterations": 4, "eval_interval": 2,
+                           "shwd_layers": 2, "eval_metric": "cd"})
+    res = tf.run_flow(src, tgt, cfg, device="cpu")
+    assert res.eval_values.shape == (3,)
+    want0 = float(j_chamfer(jax.numpy.asarray(src)[None], jax.numpy.asarray(tgt)[None]))
+    want2 = float(j_chamfer(jax.numpy.asarray(res.clouds)[None],
+                            jax.numpy.asarray(tgt)[None]))
+    np.testing.assert_allclose(res.eval_values[0], want0, rtol=1e-5)
+    np.testing.assert_allclose(res.eval_values[-1], want2, rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown eval metric"):
+        tf.run_flow(src, tgt, dataclasses.replace(cfg, eval_metric="emd"),
+                    device="cpu")
+
+
 def test_run_flow_lr_decay_matches_optax_schedule():
     """lr_decay_alpha < 1 follows optax.cosine_decay_schedule."""
     import optax

@@ -32,3 +32,9 @@ def test_every_module_is_checked():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "auction.py", "sinkhorn_kernels.py",
             "flow_driver.py", "shwd.py"} <= names
+    assert {"sinkhorn_fused.py", "chamfer.py", "quaternion.py", "pcrnet.py",
+            "pointnet.py", "synthetic.py", "modelnet.py", "transforms.py",
+            "dataset.py", "trainer.py", "config.py", "checkpoint.py",
+            "baselines.py", "profile_torch_train.py"} <= names
+    dirs = {p.parent.name for p in FILES}
+    assert {"models", "data", "train", "ops", "losses", "utils", "flows"} <= dirs

@@ -14,6 +14,8 @@ from scipy.optimize import linear_sum_assignment
 
 from shwd_torch.ops import auction as ta
 from shwd_torch.ops import sinkhorn_kernels as tk
+from shwd_torch.ops import sinkhorn_fused as tp
+from shwd_torch.ops.chamfer import chamfer, chamfer_tiled, chamfer_tiled_reference
 
 
 @pytest.fixture
@@ -103,6 +105,120 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
         ta.auction_assignment(c.transpose(1, 2))
 
 
+def _clouds(b, n, m, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, n, 3)).astype(np.float32)
+    y = rng.normal(size=(b, m, 3)).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,p", [
+    ((128, 128, 128), "lp", 2.0), ((51, 128, 128), "lp", 2.0),
+    ((3, 100, 130), "lp", 2.0),
+    ((3, 100, 130), "cosine", 1.0), ((3, 100, 130), "geodesic", 2.0),
+    ((2, 200, 260), "lp", 2.0),        # tiles in the global scratch
+    ((2, 40, 600), "cosine", 2.0),     # more columns than threads
+])
+def test_sinkhorn_points_kernel_matches_reference(cuda, shape, kind, p):
+    """K3 vs its plain version: val rtol 1e-3, f/g atol 1e-4 (f32 sums in
+    another order over 200 dependent iterations)."""
+    x, y = _clouds(*shape, seed=11, dev=cuda)
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+    v1, f1, g1 = tp._fused_forward(x, y, kind, p, **kw)
+    v2, f2, g2 = tp.sinkhorn_points_reference(x, y, kind, p, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(v1.cpu().numpy(), v2.cpu().numpy(), rtol=1e-3)
+    np.testing.assert_allclose(f1.cpu().numpy(), f2.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(g1.cpu().numpy(), g2.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_points_single_scale(cuda):
+    """num_scales=1 keeps the JAX package's behaviour: the only
+    temperature is eps0, the plan is formed with eps."""
+    x, y = _clouds(2, 32, 48, seed=12, dev=cuda)
+    kw = dict(eps=5e-2, num_iters=30, num_scales=1)
+    v1, f1, _ = tp._fused_forward(x, y, "lp", 2.0, **kw)
+    v2, f2, _ = tp.sinkhorn_points_reference(x, y, "lp", 2.0, **kw)
+    np.testing.assert_allclose(v1.cpu().numpy(), v2.cpu().numpy(), rtol=1e-3)
+    np.testing.assert_allclose(f1.cpu().numpy(), f2.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,p", [("lp", 2.0), ("cosine", 1.0)])
+def test_sinkhorn_points_gradient(cuda, kind, p):
+    """The autograd.Function's gradient (kernel duals, plan pulled through
+    the cost) against autograd of the same envelope from the plain
+    version's duals: atol 1e-5 on gradients of size ~1e-2."""
+    from shwd_torch.ops.costs import cost_matrix
+    x, y = _clouds(3, 100, 130, seed=13, dev=cuda)
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+    x1, y1 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    k0 = tp.sinkhorn_points.launches
+    w = torch.arange(1.0, 4.0, device=cuda)
+    (tp.sinkhorn_points(x1, y1, kind, p, **kw) * w).sum().backward()
+    assert tp.sinkhorn_points.launches == k0 + 1
+    _, f, g = tp.sinkhorn_points_reference(x, y, kind, p, **kw)
+    x2, y2 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    c = cost_matrix(x2, y2, kind, p)
+    plan = torch.exp((f[:, :, None] + g[:, None, :] - c.detach()) / kw["eps"]
+                     - np.log(100) - np.log(130))
+    ((plan * c).sum((1, 2)) * w).sum().backward()
+    np.testing.assert_allclose(x1.grad.cpu().numpy(), x2.grad.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(y1.grad.cpu().numpy(), y2.grad.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_emd2_points_picks_the_kernel_on_the_card(cuda):
+    x, y = _clouds(2, 64, 64, seed=14, dev=cuda)
+    k0 = tp.sinkhorn_points.launches
+    tp.emd2_points(x, y)                          # gate admits lp p=2
+    assert tp.sinkhorn_points.launches == k0 + 1
+    tp.emd2_points(x, y, "lp", 1.0)               # p=1: the emd2_approx route
+    tp.emd2_points(x, y, use_kernel=False)
+    assert tp.sinkhorn_points.launches == k0 + 1
+    with pytest.raises(ValueError):
+        tp.sinkhorn_points(x.double(), y.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 128, 128), (1, 1200, 1200),
+                                   (2, 5000, 4099), (1, 7, 3)])
+def test_chamfer_kernel_matches_reference(cuda, shape):
+    """K4 vs its plain version and the dense form: rtol 1e-5 (the same
+    squared differences; fused multiply-adds and the order of the mean)."""
+    x, y = _clouds(*shape, seed=15, dev=cuda)
+    k0 = chamfer_tiled.launches
+    got = float(chamfer_tiled(x, y))
+    assert chamfer_tiled.launches == k0 + 1
+    np.testing.assert_allclose(got, float(chamfer_tiled_reference(x, y)), rtol=1e-5)
+    np.testing.assert_allclose(got, float(chamfer(x, y)), rtol=1e-5)
+    with pytest.raises(ValueError):
+        chamfer_tiled(x.transpose(1, 2), y)
+
+
+@pytest.mark.gpu
+def test_run_flow_cd_metric_launches_the_chamfer_kernel(cuda):
+    """run_flow with eval_metric="cd" records K4's Chamfer at iteration 0
+    and after each interval; the last value is the dense chamfer of the
+    returned cloud (rtol 1e-5)."""
+    from shwd_torch.ops.sphere_sampling import sample_cube_surface
+    from shwd_torch.train import flow_driver as fd
+
+    rng = np.random.default_rng(0)
+    src = sample_cube_surface(rng, 300).numpy()
+    tgt = sample_cube_surface(rng, 300, biased=True).numpy()
+    cfg = fd.FlowConfig(num_iterations=4, eval_interval=2, shwd_layers=2,
+                        shwd_solver="hybrid", eval_metric="cd")
+    k0 = chamfer_tiled.launches
+    res = fd.run_flow(src, tgt, cfg)
+    assert chamfer_tiled.launches == k0 + 3
+    want = float(chamfer(torch.from_numpy(res.clouds).to(cuda)[None],
+                         torch.from_numpy(tgt).to(cuda)[None]))
+    np.testing.assert_allclose(res.eval_values[-1], want, rtol=1e-5)
+
+
 @pytest.mark.gpu
 def test_flow_step_makes_no_host_sync(cuda):
     """A Flow_cube SHWD step (1200 points, hybrid) never waits on the card:
@@ -127,3 +243,40 @@ def test_flow_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("criterion,solver", [("w_cos", "sinkhorn"),
+                                              ("w_cos", "hybrid"), ("cd", "sinkhorn")])
+def test_registration_train_step_makes_no_host_sync(cuda, tmp_path, criterion, solver):
+    """A registration train step (B=128, N=128, full-width PCRNet) never
+    waits on the card: CUDA's sync debug mode raises on any synchronising
+    call. The sinkhorn step launches K3 twice."""
+    from shwd_torch.data import DatasetConfig, RegistrationDataset, TransformConfig
+    from shwd_torch.losses import SHWDConfig, TransportConfig
+    from shwd_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(
+        log_dir=str(tmp_path), criterion=criterion, batch_size=128,
+        dataset=DatasetConfig(num_synthetic=128, synthetic_kinds=("composite",),
+                              cache_dir=str(tmp_path / "mc"),
+                              transform=TransformConfig(noise_sigma=0.02)),
+        shwd=SHWDConfig(transport=TransportConfig(solver=solver), max_iter=1,
+                        lam=1.3e-5, phi_lr=9.2e-5))
+    trainer = Trainer(cfg)
+    ds = RegistrationDataset(cfg.dataset, "train")
+    state = trainer.init_state(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batches = list(ds.batches(gen, np.arange(128), 128, shuffle=False)) * 3
+    trainer._train_step(state, batches[0])     # first step: libraries load
+    torch.cuda.synchronize()
+    k0 = tp.sinkhorn_points.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in batches[1:]:
+            loss = trainer._train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
+    want = 4 if (criterion, solver) == ("w_cos", "sinkhorn") else 0
+    assert tp.sinkhorn_points.launches == k0 + want

@@ -169,7 +169,46 @@ def test_unbatched_warm_path_drops_batch_dim():
 
 
 def test_later_solvers_raise():
-    for solver in ("sinkhorn", "ssw", "exact", "sinkhorn_div"):
+    for solver in ("ssw", "exact"):
         with pytest.raises(NotImplementedError):
             ts.SHWDLoss(lambda g: t_make_flow("Residual", 1, generator=g),
                         ts.SHWDConfig(transport=TTransport(solver=solver)))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batched_w1_cos_call_matches_jax(train):
+    """The registration trainer's use: a (B, N, 3) batch on the sinkhorn
+    solver with p=1 (w1_cos; the fused-kernel gate is closed, so both sides
+    take cost_matrix + emd2_approx), train and eval. Value, phi(x) and the
+    gradient wrt x within rtol 1e-3 / atol 1e-5 (60 Sinkhorn iterations)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 24, 3)).astype(np.float32) * 0.5
+    y = x + 0.1 * rng.normal(size=(3, 24, 3)).astype(np.float32)
+    tp = dict(cost="lp", p=1.0, solver="sinkhorn", eps=5e-3, num_iters=20,
+              num_scales=3)
+    kw = dict(max_iter=1, lam=1e-3, phi_lr=1e-3)
+    jcrit = js.SHWDLoss(j_make_flow("Residual", 2),
+                        js.SHWDConfig(transport=JTransport(**tp), **kw))
+    jstate = jcrit.init(jax.random.PRNGKey(1))
+
+    def loss(xx, yy, st):
+        (w, sx, _), st = jcrit.apply(st, xx, yy, train)
+        return w, (sx, st)
+
+    (jw, (jsx, jst)), jgx = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jnp.asarray(x), jnp.asarray(y), jstate)
+    tcrit = ts.SHWDLoss(lambda g: t_make_flow("Residual", 2, generator=g),
+                        ts.SHWDConfig(transport=TTransport(**tp), **kw))
+    tstate = tcrit.init(torch.Generator().manual_seed(0), phi=_port_phi(jstate))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tw, tsx, _), tstate = tcrit.apply(tstate, xt, torch.from_numpy(y), train)
+    (tgx,) = torch.autograd.grad(tw, xt)
+    tol = dict(rtol=1e-3, atol=1e-5)
+    assert tw.shape == ()
+    np.testing.assert_allclose(float(tw.detach()), float(jw), **tol)
+    np.testing.assert_allclose(tsx.detach().numpy(), np.asarray(jsx), **tol)
+    np.testing.assert_allclose(tgx.numpy(), np.asarray(jgx), **tol)
+    moved = any(not np.allclose(a, b, atol=1e-6) for a, b in zip(
+        jax.tree_util.tree_leaves(_np(jstate.phi_params)),
+        jax.tree_util.tree_leaves(phi_tree(tstate.phi)[0])))
+    assert moved == train

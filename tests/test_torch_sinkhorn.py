@@ -83,3 +83,56 @@ def test_warmup_wrapper_on_cpu_is_the_reference():
                                  (64, 4000), (3000, 1000)])
 def test_warmup_supported_matches_jax(n, m):
     assert tk.warmup_supported(n, m) == warmup_supported(n, m)
+
+
+def _clouds(rng, b, n, m):
+    return (rng.normal(size=(b, n, 3)).astype(np.float32),
+            rng.normal(size=(b, m, 3)).astype(np.float32))
+
+
+def test_sinkhorn_divergence_cost_matches_jax():
+    """S = W(x,y) - (W(x,x) + W(y,y)) / 2 from three costs: rtol 1e-3
+    (three emd2_approx solves), and ~0 for identical clouds."""
+    from shwd_torch.ops.costs import cost_matrix as t_cost
+    from shwd_tpu.ops.costs import cost_matrix as j_cost
+    x, y = _clouds(np.random.default_rng(6), 2, 24, 24)
+    kw = dict(eps=5e-3, num_iters=30, num_scales=3)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    want = js.sinkhorn_divergence_cost(j_cost(jx, jy), j_cost(jx, jx), j_cost(jy, jy), **kw)
+    got = ts.sinkhorn_divergence_cost(t_cost(tx, ty), t_cost(tx, tx), t_cost(ty, ty), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3)
+    same = ts.sinkhorn_divergence_cost(t_cost(tx, tx), t_cost(tx, tx), t_cost(tx, tx), **kw)
+    assert float(same.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("root", [False, True])
+def test_sinkhorn_loss_matches_jax(root):
+    """The baseline criterion's loss and its gradient (rtol 1e-3)."""
+    import jax
+    x, y = _clouds(np.random.default_rng(7), 3, 20, 16)
+    kw = dict(eps=0.01, num_iters=40, p=2, wasserstein_root=root)
+    want, gwant = jax.value_and_grad(lambda a: js.sinkhorn_loss(a, jnp.asarray(y), **kw))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = ts.sinkhorn_loss(xt, torch.from_numpy(y), **kw)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-3)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gwant), rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("solver", ["sinkhorn", "sinkhorn_div"])
+@pytest.mark.parametrize("batched", [True, False])
+def test_transport_sinkhorn_solvers_match_jax(solver, batched):
+    """make_transport on the CPU routes of both packages, batched (mean
+    over the batch) and unbatched (a 0-dim value): rtol 1e-3."""
+    from shwd_torch.losses.transport import TransportConfig as TT, make_transport as t_make
+    from shwd_tpu.losses.transport import TransportConfig as JT, make_transport as j_make
+    x, y = _clouds(np.random.default_rng(8), 3, 20, 20)
+    if not batched:
+        x, y = x[0], y[0]
+    kw = dict(cost="lp", p=2.0, solver=solver, eps=5e-3, num_iters=30, num_scales=3)
+    want = j_make(JT(**kw))(jnp.asarray(x), jnp.asarray(y))
+    got = t_make(TT(**kw))(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-3)
