@@ -10,13 +10,15 @@ Phases, each printing one JSON line:
   2. build: nvcc for every kernel source in shwd_torch/csrc, in parallel;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at every shape the main paths give it and a ragged/batched one,
-     with timings: the Sinkhorn warm-up (K1: the flow's 1x1200x1200), the
-     auction (K2: the flow's warm 1x1200, and the registration trainer's
-     128x128x128 both from the Sinkhorn warm-up and seeded with the
-     previous solve's matching), the fused point-cloud Sinkhorn with its
-     gradient (K3: the train batch 128x128x128 and the eval batch
-     51x128x128), the tiled Chamfer (K4: the flow's eval metric,
-     1x1200x1200);
+     with timings: the Sinkhorn warm-up (K1: the flow's 1x1200x1200, with
+     the time of its bare chain of exchanges between blocks), the auction
+     (K2: the flow's 1x1200 from K1's prices, at cluster sizes 1 and 16,
+     and the registration trainer's 128x128x128 both from the Sinkhorn
+     warm-up and seeded with the previous solve's matching; the flow's
+     seeded solve is checked after the flow of phase 4, on the inputs of
+     its last launch), the fused point-cloud Sinkhorn with its gradient
+     (K3: the train batch 128x128x128 and the eval batch 51x128x128), the
+     tiled Chamfer (K4: the flow's eval metric, 1x1200x1200);
   4. slice 1: the Flow_cube SHWD gradient flow through
      shwd_torch.train.flow_driver.run_flow (1200 points, 5 Residual
      layers, hybrid exact-EMD solver, 400 iterations), with the kernels'
@@ -34,10 +36,12 @@ Phases, each printing one JSON line:
      back, and over the sinkhorn run the train loss and the validation
      loss must fall and the validation rotation error must end on the
      plateau of about 40 deg that the JAX trainer reaches on this bank;
+  6. launches per call: one call of each wrapper under torch.profiler, the
+     CUDA kernels on the device's timeline counted and checked (1 for K1,
+     K2 and K3; 3 for K4);
 then the kernel table ({"kernels": [...]}; "launches" counts the wrapper's
-calls on the main path, "launches_per_call" the CUDA launches each call
-makes), the nvidia-smi line, and a
-last line {"ok": true, "device": {...}}. Any failure raises: the script
+calls on the main path, "launches_per_call" is phase 6's count), the
+nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. Without CUDA, or without the
 shwd_torch package beside it, it exits non-zero before printing anything.
 """
@@ -80,8 +84,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+def time_ms(fn, reps: int = 5, warmup: int = 1, ahead: bool = False) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events). ``ahead``
+    keeps the card busy for about 2 ms before the first event, so the host
+    has queued all of ``fn`` by then and the time is the device's alone
+    (for kernels shorter than the host's own work per call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -89,12 +96,31 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(4_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_launches(fn) -> list[str]:
+    """The names of the CUDA kernels one call of ``fn`` launches, read from
+    the device's timeline (torch.profiler); plain copies and fills are left
+    out. ``fn`` has run before, so nothing is built inside."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and "#" not in ev.name
+            and not ev.name.startswith(("Memcpy", "Memset"))]
 
 
 def bound_ms(bytes_moved: float, ops: float, transcendentals: float = 0.0):
@@ -168,7 +194,10 @@ def check_warmup(dev):
     for name, c in (("flow_1x1200x1200", flow_cost), ("ragged_2x300x333", ragged)):
         v1, f1, g1 = sk.emd2_warmup(c, **kw)
         v2, f2, g2 = sk.emd2_warmup_reference(c, **kw)
+        again = sk.emd2_warmup(c, **kw)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((v1, f1, g1), again)),
+              f"K1 {name}: two calls differ")
         for t in (v1, f1, g1):
             check(bool(torch.isfinite(t).all()), f"K1 {name}: non-finite output")
         val_rel = float(((v1 - v2).abs() / v2.abs()).max())
@@ -177,9 +206,13 @@ def check_warmup(dev):
         check(val_rel <= 1e-3, f"K1 {name}: val rel err {val_rel}")
         check(f_err <= 1e-4 and g_err <= 1e-4, f"K1 {name}: f/g err {f_err} {g_err}")
         report[name] = {"val_rel_err": val_rel, "f_abs_err": f_err,
-                        "g_abs_err": g_err}
-    ms = time_ms(lambda: sk.emd2_warmup(flow_cost, **kw))
+                        "g_abs_err": g_err, "layout": sk.warmup_layout(c)}
+    ms = time_ms(lambda: sk.emd2_warmup(flow_cost, **kw), ahead=True)
     plain_ms = time_ms(lambda: sk.emd2_warmup_reference(flow_cost, **kw))
+    # the chain floor: an iteration is two exchanges across the grid, so a
+    # call cannot beat 2 * iterations * scales bare exchanges
+    exchanges = 2 * kw["num_iters"] * kw["num_scales"]
+    chain_ms = time_ms(lambda: sk.warmup_exchanges(flow_cost, exchanges), ahead=True)
     b, n, m = flow_cost.shape
     entries = b * n * m
     sweeps = kw["num_iters"] * kw["num_scales"]
@@ -193,25 +226,72 @@ def check_warmup(dev):
     bnd, by, terms = bound_ms(bytes_moved, ops, transcendentals)
     emit({"phase": "kernel_check", "kernel": "emd2_warmup", "checks": report,
           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-          "bound_terms": terms,
-          "launches_per_call": 2 * kw["num_iters"] * kw["num_scales"] + 2})
+          "bound_terms": terms, "chain_floor_ms": chain_ms, "grid_exchanges": exchanges,
+          "us_per_exchange": chain_ms / exchanges * 1e3})
     err = max(max(r["f_abs_err"], r["g_abs_err"]) for r in report.values())
     return flow_cost, {"name": "emd2_warmup", "route": "cuda",
                        "source": "shwd_torch/csrc/emd2_warmup.cu",
                        "replaces": "shwd_tpu/ops/sinkhorn_pallas.py:402",
-                       "launches_per_call":
-                       2 * kw["num_iters"] * kw["num_scales"] + 2,
+                       "chain_floor_ms": chain_ms,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+def auction_case(name, c, kw):
+    """One K2 solve held against auction_assignment_reference (the same
+    assignment and prices, bit for bit) and the exact scipy assignment
+    (rtol 1e-4). Returns (report, assignment, prices)."""
+    from shwd_torch.ops import auction as au
+    a1, p1, s1 = au.auction_assignment(c, EPS_FINAL, **kw)
+    cluster = au._auction_launch.last_cluster
+    a2, p2, s2 = au.auction_assignment_reference(c, EPS_FINAL, **kw)
+    # the rows this solve scanned, for the bound (same inputs, so the same
+    # deterministic run)
+    rows = au._auction_launch(c, EPS_FINAL, 6.0, kw["max_sweeps"], kw.get("prices0"),
+                              kw.get("eps0"), kw.get("assign0"))[3]
+    torch.cuda.synchronize()
+    n = c.shape[-1]
+    for row in a1.cpu().numpy():
+        check(sorted(row.tolist()) == list(range(n)), f"K2 {name}: not a permutation")
+    v1 = au._assignment_cost(c, a1).double().cpu().numpy()
+    v2 = au._assignment_cost(c, a2).double().cpu().numpy()
+    lsa = np.array([lsa_value(ci) for ci in c.cpu().numpy()])
+    check(bool(torch.equal(a1, a2)), f"K2 {name}: assignment differs from the plain version")
+    check(bool(torch.equal(p1, p2)), f"K2 {name}: prices differ from the plain version "
+          f"by {float((p1 - p2).abs().max())}")
+    check(bool(np.allclose(v1, lsa, rtol=1e-4)), f"K2 {name}: {v1} vs exact {lsa}")
+    report = {"cluster_size": cluster, "same_assignment": True, "same_prices": True,
+              "value_abs_err": float(np.abs(v1 - v2).max()),
+              "exact_rel_err": float(np.abs(v1 / lsa - 1).max()),
+              "sweeps_kernel_max": int(s1.max()), "sweeps_plain_max": int(s2.max()),
+              "rows_scanned": int(rows.sum())}
+    return report, a1, p1
+
+
+def auction_timing(c, kw, rows_scanned):
+    """K2's time, the plain version's and the bound of one solve."""
+    from shwd_torch.ops import auction as au
+    n, b = c.shape[-1], c.shape[0]
+    # bytes: the cost, prices and eps0 read once, assignment, prices,
+    # sweeps and rows written once (a row scanned again comes from L2);
+    # ops: one pass of (negate, subtract, compare, max) over every entry of
+    # the rows this run's sweeps and screens scanned
+    bytes_moved = b * (n * n * 4 + n * 4 + 2 * n * 4 + 8) + 4
+    bnd, by, terms = bound_ms(bytes_moved, rows_scanned * n * 4)
+    return {"ms": time_ms(lambda: au.auction_assignment(c, EPS_FINAL, **kw), ahead=True),
+            "plain_ms": time_ms(lambda: au.auction_assignment_reference(
+                c, EPS_FINAL, **kw), reps=3 if b > 1 else 5),
+            "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
+
+
 def check_auction(dev, flow_cost):
     """K2 vs auction_assignment_reference and the exact scipy assignment:
-    the flow shape from K1's warm prices (as the hybrid solver calls it), a
-    cold batch of four, and the registration trainer's two solves of a
-    step at 128x128x128: the first priced by the plain Sinkhorn warm-up,
-    the second seeded with the first's matching and prices on a nearby
-    cost (as SHWDLoss calls hybrid_assignment_warm)."""
+    the flow shape from K1's warm prices (as the hybrid solver calls it on
+    the start cost; also forced to cluster sizes 1 and 16, which must agree
+    to the bit), a cold batch of four, and the registration trainer's two
+    solves of a step at 128x128x128: the first priced by the plain Sinkhorn
+    warm-up, the second seeded with the first's matching and prices on a
+    nearby cost (as SHWDLoss calls hybrid_assignment_warm)."""
     from shwd_torch.ops import auction as au
     from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops.costs import cost_matrix
@@ -235,66 +315,64 @@ def check_auction(dev, flow_cost):
     moved = reg_y + 1e-3 * torch.as_tensor(
         rng.normal(size=tuple(reg_y.shape)), dtype=torch.float32, device=dev)
     seeded_cost = cost_matrix(reg_x, moved, "lp", 2.0).contiguous()
-    cases = [("flow_1x1200_warm", flow_cost, warm), ("cold_4x128", cold_cost, cold),
-             ("registration_128x128x128_warm", reg_cost, reg)]
-    report, rows_of, timing = {}, {}, {}
-    for name, c, kw in cases:
-        a1, p1, s1 = au.auction_assignment(c, EPS_FINAL, **kw)
-        a2, p2, s2 = au.auction_assignment_reference(c, EPS_FINAL, **kw)
-        # the rows this solve scanned, for the byte bound (same inputs, so
-        # the same deterministic run)
-        rows = au._auction_launch(c, EPS_FINAL, 6.0, kw["max_sweeps"],
-                                  kw.get("prices0"), kw.get("eps0"),
-                                  kw.get("assign0"))[3]
+    report, timing = {}, {}
+    report["flow_1x1200_warm"], flow_a, flow_p = auction_case(
+        "flow_1x1200_warm", flow_cost, warm)
+    report["cold_4x128"], _, _ = auction_case("cold_4x128", cold_cost, cold)
+    name = "registration_128x128x128_warm"
+    report[name], a1, p1 = auction_case(name, reg_cost, reg)
+    seeded = dict(max_sweeps=4000, prices0=p1.contiguous(),
+                  eps0=au._hybrid_eps0(seeded_cost, EPS_FINAL), assign0=a1.contiguous())
+    report["registration_128x128x128_seeded"], _, _ = auction_case(
+        "registration_128x128x128_seeded", seeded_cost, seeded)
+    # one problem on one CTA and on a cluster of 16: the split of the work
+    # must not show in the result
+    by_cluster = {}
+    for size in (1, 16):
+        a, p, _, _ = au._auction_launch(flow_cost, EPS_FINAL, 6.0, 4000, warm["prices0"],
+                                        warm["eps0"], None, cluster=size)
         torch.cuda.synchronize()
-        n = c.shape[-1]
-        for row in a1.cpu().numpy():
-            check(sorted(row.tolist()) == list(range(n)), f"K2 {name}: not a permutation")
-        v1 = au._assignment_cost(c, a1).double().cpu().numpy()
-        v2 = au._assignment_cost(c, a2).double().cpu().numpy()
-        lsa = np.array([lsa_value(ci) for ci in c.cpu().numpy()])
-        check(bool(np.all(np.abs(v1 - v2) <= n * EPS_FINAL)),
-              f"K2 {name}: kernel {v1} vs plain {v2}")
-        check(bool(np.allclose(v1, lsa, rtol=1e-4)), f"K2 {name}: {v1} vs exact {lsa}")
-        same = bool(torch.equal(a1, a2))
-        price_err = float((p1 - p2).abs().max())
-        report[name] = {"same_assignment": same, "value_abs_err": float(np.abs(v1 - v2).max()),
-                        "price_abs_err": price_err, "exact_rel_err":
-                        float(np.abs(v1 / lsa - 1).max()),
-                        "sweeps_kernel_max": int(s1.max()), "sweeps_plain_max": int(s2.max()),
-                        "rows_scanned": int(rows.sum())}
-        rows_of[name] = int(rows.sum())
-        if name == "registration_128x128x128_warm":
-            cases.append(("registration_128x128x128_seeded", seeded_cost,
-                          dict(max_sweeps=4000, prices0=p1.contiguous(),
-                               eps0=au._hybrid_eps0(seeded_cost, EPS_FINAL),
-                               assign0=a1.contiguous())))
-    for name, c, kw in cases:
-        if name.startswith("cold"):
-            continue
-        n, b = c.shape[-1], c.shape[0]
-        # bytes: the cost, prices and eps0 read once, assignment, prices,
-        # sweeps and rows written once (a row scanned again comes from L2);
-        # ops: two passes of (negate-subtract, compare) over every entry of
-        # the rows this run's sweeps and screens scanned
-        bytes_moved = b * (n * n * 4 + n * 4 + 2 * n * 4 + 8) + 4
-        bnd, by, terms = bound_ms(bytes_moved, rows_of[name] * n * 4)
-        timing[name] = {
-            "ms": time_ms(lambda: au.auction_assignment(c, EPS_FINAL, **kw)),
-            "plain_ms": time_ms(lambda: au.auction_assignment_reference(
-                c, EPS_FINAL, **kw), reps=3 if b > 1 else 5),
-            "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
+        check(bool(torch.equal(a, flow_a) and torch.equal(p, flow_p)),
+              f"K2 flow_1x1200_warm: cluster size {size} changes the result")
+        by_cluster[str(size)] = time_ms(lambda: au._auction_launch(
+            flow_cost, EPS_FINAL, 6.0, 4000, warm["prices0"], warm["eps0"], None,
+            cluster=size), reps=3, ahead=True)
+    report["flow_1x1200_warm"]["ms_by_cluster_size"] = by_cluster
+    for name, c, kw in (("flow_1x1200_warm", flow_cost, warm),
+                        ("registration_128x128x128_warm", reg_cost, reg),
+                        ("registration_128x128x128_seeded", seeded_cost, seeded)):
+        timing[name] = auction_timing(c, kw, report[name]["rows_scanned"])
     emit({"phase": "kernel_check", "kernel": "auction_assignment", "checks": report,
-          "timing": timing, "launches_per_call": 1})
-    t = timing["flow_1x1200_warm"]
+          "timing": timing})
     return {"name": "auction_assignment", "route": "cuda",
             "source": "shwd_torch/csrc/auction.cu",
-            "replaces": "shwd_tpu/ops/auction.py:43", "launches_per_call": 1,
+            "replaces": "shwd_tpu/ops/auction.py:43",
             "max_abs_err": max(r["value_abs_err"] for r in report.values()),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "library_ms": None, "start_cost": timing["flow_1x1200_warm"],
+            "cluster_size": {k: r["cluster_size"] for k, r in report.items()},
             "registration": {k: timing[f"registration_128x128x128_{k}"]
                              for k in ("warm", "seeded")}}
+
+
+def check_auction_seeded(k2, captured):
+    """K2 on the inputs of the flow's last launch: the seeded solve that
+    ends a step (the first solve's matching and prices, on the cost one phi
+    step later). All but the first of the flow's launches look like it, so
+    its time is the K2 row's; the start cost's stands beside it."""
+    cost, eps_final, scale, max_sweeps, prices0, eps0, assign0 = captured
+    check(assign0 is not None and tuple(cost.shape) == (1, FLOW_N, FLOW_N),
+          "flow: the last auction launch was not the seeded 1x1200 solve")
+    check(eps_final == EPS_FINAL and scale == 6.0, "flow: unexpected auction settings")
+    kw = dict(max_sweeps=max_sweeps, prices0=prices0, eps0=eps0, assign0=assign0)
+    report, _, _ = auction_case("flow_1x1200_seeded", cost, kw)
+    timing = auction_timing(cost, kw, report["rows_scanned"])
+    emit({"phase": "kernel_check", "kernel": "auction_assignment",
+          "checks": {"flow_1x1200_seeded": report},
+          "timing": {"flow_1x1200_seeded": timing}})
+    k2["cluster_size"]["flow_1x1200_seeded"] = report["cluster_size"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], report["value_abs_err"])
+    k2.update({k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    k2["seeded"] = timing
 
 
 def rand_clouds(b, n, m, seed, dev):
@@ -387,14 +465,13 @@ def check_sinkhorn_points(dev):
                 x, y, "lp", 2.0, **REG_SINK), reps=3),
             "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
     emit({"phase": "kernel_check", "kernel": "sinkhorn_points", "checks": report,
-          "timing": timing, "launches_per_call": 1})
+          "timing": timing})
     t = timing["train_128x128x128"]
     err = max(max(r["f_abs_err"], r["g_abs_err"])
               for k, r in report.items() if "f_abs_err" in r)
     return {"name": "sinkhorn_points", "route": "cuda",
             "source": "shwd_torch/csrc/sinkhorn_points.cu",
             "replaces": "shwd_tpu/ops/sinkhorn_pallas.py:202",
-            "launches_per_call": 1,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "eval": timing[f"eval_{REG_VAL}x128x128"]}
@@ -435,11 +512,11 @@ def check_chamfer(dev):
         report[name] = {"abs_err_vs_plain": err_ref, "abs_err_vs_dense": err_dense,
                         "value": float(got)}
     emit({"phase": "kernel_check", "kernel": "chamfer_tiled", "checks": report,
-          "timing": timing, "launches_per_call": 3})
+          "timing": timing})
     t = timing["flow_eval_1x1200x1200"]
     return {"name": "chamfer_tiled", "route": "cuda",
             "source": "shwd_torch/csrc/chamfer.cu",
-            "replaces": "shwd_tpu/ops/chamfer.py:100", "launches_per_call": 3,
+            "replaces": "shwd_tpu/ops/chamfer.py:100",
             "max_abs_err": max(r["abs_err_vs_plain"] for r in report.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None}
@@ -460,11 +537,25 @@ def phase_flow(dev):
     from shwd_torch.train.flow_driver import run_flow
     src, tgt = flow_clouds(dev)
     cfg = flow_config()
+    # keep the inputs of the flow's last auction launch (two per iteration)
+    # for check_auction_seeded
+    inner, seen, captured = au._auction_launch, [0], []
+
+    def recording(*args):
+        seen[0] += 1
+        if seen[0] == 2 * cfg.num_iterations:
+            captured.extend(a.clone() if torch.is_tensor(a) else a for a in args)
+        return inner(*args)
+
+    au._auction_launch = recording
     sk.emd2_warmup.launches = 0
     au.auction_assignment.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, device=dev)
+    try:
+        res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, device=dev)
+    finally:
+        au._auction_launch = inner
     wall = time.perf_counter() - t0
     launches = {"emd2_warmup": sk.emd2_warmup.launches,
                 "auction_assignment": au.auction_assignment.launches}
@@ -480,7 +571,9 @@ def phase_flow(dev):
           "flow: malformed clouds")
     check(all(v > 0 for v in launches.values()), f"flow: a kernel never ran {launches}")
     check(final_w2 <= 1e-3, f"flow: final W2 {final_w2} > 1e-3")
-    return launches
+    check(seen[0] == 2 * cfg.num_iterations,
+          f"flow: {seen[0]} auction launches, expected {2 * cfg.num_iterations}")
+    return launches, captured
 
 
 def phase_flow_cd(dev):
@@ -631,6 +724,43 @@ def phase_registration(dev):
             "auction_assignment": hyb["launches"]["auction_assignment"]}
 
 
+def phase_launches_per_call(dev, kernels):
+    """How many CUDA kernels one call of each wrapper puts on the card, at
+    its main path's shape, counted on the device's timeline: 1 for the
+    warm-up, the auction (prices and eps0 given, as every main path gives
+    them) and the fused Sinkhorn, 3 for the Chamfer (a minimum per side and
+    the mean). Runs after the main paths, so the profiler touches none of
+    their times."""
+    from shwd_torch.ops import auction as au
+    from shwd_torch.ops import sinkhorn_fused as sp
+    from shwd_torch.ops import sinkhorn_kernels as sk
+    from shwd_torch.ops.chamfer import chamfer_tiled
+    from shwd_torch.ops.costs import cost_matrix
+    src, tgt = flow_clouds(dev)
+    fx, fy = src[None].contiguous(), tgt[None].contiguous()
+    flow_cost = cost_matrix(fx, fy, "lp", 2.0).contiguous()
+    kw = dict(eps=1e-5, num_iters=40, num_scales=8)
+    prices0 = (-sk.emd2_warmup(flow_cost, **kw)[2]).contiguous()
+    eps0 = au._hybrid_eps0(flow_cost, EPS_FINAL)
+    reg_x, reg_y = registration_clouds(dev)
+    calls = {
+        "emd2_warmup": (1, lambda: sk.emd2_warmup(flow_cost, **kw)),
+        "auction_assignment": (1, lambda: au.auction_assignment(
+            flow_cost, EPS_FINAL, max_sweeps=4000, prices0=prices0, eps0=eps0)),
+        "sinkhorn_points": (1, lambda: sp._fused_forward(
+            reg_x, reg_y, "lp", 2.0, **REG_SINK)),
+        "chamfer_tiled": (3, lambda: chamfer_tiled(fx, fy))}
+    seen = {}
+    for k in kernels:
+        want, fn = calls[k["name"]]
+        seen[k["name"]] = names = cuda_launches(fn)
+        k["launches_per_call"] = len(names)
+        check(len(names) == want, f"{k['name']}: a call launched {len(names)} "
+              f"CUDA kernels, expected {want}: {names}")
+    emit({"phase": "launches_per_call",
+          "kernels": {k: [n[:60] for n in v] for k, v in seen.items()}})
+
+
 def main() -> int:
     import shwd_torch  # noqa: F401  (fails outside the repository)
     if not torch.cuda.is_available():
@@ -644,13 +774,16 @@ def main() -> int:
     del flow_cost
     k3 = check_sinkhorn_points(dev)
     k4 = check_chamfer(dev)
-    launches = phase_flow(dev)
+    launches, captured = phase_flow(dev)
     k1["launches"] = launches["emd2_warmup"]
     k2["launches"] = launches["auction_assignment"]
+    check_auction_seeded(k2, captured)
+    del captured
     k4["launches"] = phase_flow_cd(dev)
     reg_launches = phase_registration(dev)
     k2["launches_registration"] = reg_launches["auction_assignment"]
     k3["launches"] = reg_launches["sinkhorn_points"]
+    phase_launches_per_call(dev, [k1, k2, k3, k4])
     emit({"kernels": [k1, k2, k3, k4]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

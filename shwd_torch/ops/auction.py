@@ -5,8 +5,9 @@ synchronous bidding solves the equal-size uniform-marginal transport
 problem (an assignment problem by Birkhoff) to within N * eps_final of
 optimal. ``auction_assignment`` launches the CUDA kernel
 ``csrc/auction.cu`` for a CUDA tensor (the whole eps ladder in one launch,
-no host round trip) and runs ``auction_assignment_reference``, its plain
-PyTorch version, for a CPU tensor.
+a thread-block cluster per problem, no host round trip) and runs
+``auction_assignment_reference``, its plain PyTorch version, for a CPU
+tensor.
 
 The hybrid solver warms the auction's prices with annealed-Sinkhorn duals
 (``_sinkhorn_warm_prices``); its gradient is the optimal permutation / N,
@@ -25,7 +26,8 @@ from .sinkhorn_kernels import emd2_warmup, warmup_supported
 
 _NEG = -1e30
 _MAX_PHASES = 64          # guards a NaN or infinite eps0 (as the kernel does)
-_SMEM_LIMIT = 232448      # dynamic shared memory one H100 block can use
+_SMEM_LIMIT = 232448      # shared memory one H100 block can use
+_SMEM_STATIC = 512        # of it, the kernel's static part (rounded up)
 
 
 def _screen_seed(assign0: torch.Tensor, n: int) -> torch.Tensor:
@@ -111,6 +113,9 @@ def auction_assignment_reference(cost: torch.Tensor, eps_final: float = 1e-6,
         eps0 = torch.clamp_min(cost.max() - cost.min(), 1e-12) / 8.0
     eps = torch.as_tensor(eps0, **f32).reshape(())
     ef = torch.tensor(eps_final, **f32)
+    # a tensor, so that eps / scale is a true division on every device (by a
+    # Python number, CUDA multiplies with the rounded reciprocal: 1 ulp off)
+    scale = torch.tensor(scale_factor, **f32)
     prices = (torch.zeros(b, m, **f32) if prices0 is None
               else prices0.detach().to(**f32))
     assign = (torch.full((b, n), -1, dtype=torch.int32, device=cost.device)
@@ -122,7 +127,7 @@ def auction_assignment_reference(cost: torch.Tensor, eps_final: float = 1e-6,
                                            max_sweeps, assign)
         total += s
         done = not bool(eps > ef)
-        eps = eps / scale_factor
+        eps = eps / scale
         if done:
             break
     return assign, prices, total
@@ -133,23 +138,57 @@ def _lib():
     fn = lib.shwd_auction
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, cf, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, cf, ci, ci,
+                       vp]
         fn.restype = ci
-    return fn
+        lib.shwd_auction_max_clusters.argtypes = [ci, ci, vp]
+        lib.shwd_auction_max_clusters.restype = ci
+    return lib
+
+
+_CLUSTER_SIZES = (16, 8, 4, 2, 1)      # what the kernel takes
+_cluster16_fits: dict[tuple[int, int], bool] = {}
+
+
+def _pick_cluster(batch: int, sms: int, fits16) -> int:
+    """CTAs per problem: 16 where ``batch`` such clusters fit on ``sms`` SMs
+    at once and ``fits16()`` says the card can place one (16 is beyond the
+    portable cluster size), else 1. These are the two layouts with a
+    measured gain: 16 on the flow's single seeded solve, whose phases are
+    screens of all rows, and 1 on a batch that fills the card by itself.
+    The sizes between are left to callers that force them."""
+    return 16 if batch * 16 <= sms and fits16() else 1
+
+
+def _device_fits16(dev: torch.device, n: int) -> bool:
+    """Whether ``dev`` reports room for at least one 16-CTA cluster of the
+    kernel at ``n`` objects (asked once per device and size)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, n)
+    if key not in _cluster16_fits:
+        count = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _lib().shwd_auction_max_clusters(n, 16, ctypes.byref(count))
+        _kernels.check(rc, "auction cluster occupancy")
+        _cluster16_fits[key] = count.value > 0
+    return _cluster16_fits[key]
 
 
 def _auction_launch(cost, eps_final, scale_factor, max_sweeps, prices0, eps0,
-                    assign0):
+                    assign0, cluster=None):
     """Launch the kernel. Returns (assign, prices, sweeps, rows): ``rows``
-    counts the cost rows each problem scanned (for the operations bound)."""
+    counts the cost rows each problem scanned (for the operations bound).
+    ``cluster`` forces the CTAs per problem (1, 2, 4, 8 or 16); by default
+    ``_pick_cluster`` chooses it from the batch size. The result does not
+    depend on it."""
     if cost.dtype != torch.float32 or cost.ndim != 3:
         raise ValueError(f"auction needs a (B, N, N) f32 cost, got "
                          f"{tuple(cost.shape)} {cost.dtype}")
     b, n, m = cost.shape
     if n != m:
         raise ValueError("the auction solves the equal-size assignment case")
-    if n * 24 + 64 > _SMEM_LIMIT:
-        raise ValueError(f"auction kernel holds N <= {(_SMEM_LIMIT - 64) // 24}"
+    if n * 24 + _SMEM_STATIC > _SMEM_LIMIT:
+        raise ValueError(f"auction kernel holds N <= {(_SMEM_LIMIT - _SMEM_STATIC) // 24}"
                          f" objects in shared memory, got {n}")
     dev = cost.device
     if prices0 is None:
@@ -171,15 +210,24 @@ def _auction_launch(cost, eps_final, scale_factor, max_sweeps, prices0, eps0,
     prices = torch.empty(b, n, dtype=torch.float32, device=dev)
     sweeps = torch.empty(b, dtype=torch.int32, device=dev)
     rows = torch.empty(b, dtype=torch.int32, device=dev)
-    fn = _lib()
+    if cluster is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cluster = _pick_cluster(b, sms, lambda: _device_fits16(dev, n))
+    elif cluster not in _CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {_CLUSTER_SIZES}, got {cluster}")
     with torch.cuda.device(dev):
-        rc = fn(cost.data_ptr(), prices0.data_ptr(), eps0.data_ptr(),
-                None if assign0 is None else assign0.data_ptr(),
-                assign.data_ptr(), prices.data_ptr(), sweeps.data_ptr(),
-                rows.data_ptr(), b, n, eps_final, scale_factor, max_sweeps,
-                _kernels.stream_ptr(cost))
-    _kernels.check(rc, "auction_assignment")
+        rc = _lib().shwd_auction(
+            cost.data_ptr(), prices0.data_ptr(), eps0.data_ptr(),
+            None if assign0 is None else assign0.data_ptr(),
+            assign.data_ptr(), prices.data_ptr(), sweeps.data_ptr(),
+            rows.data_ptr(), b, n, eps_final, scale_factor, max_sweeps,
+            cluster, _kernels.stream_ptr(cost))
+    _kernels.check(rc, f"auction_assignment (cluster size {cluster})")
+    _auction_launch.last_cluster = cluster
     return assign, prices, sweeps, rows
+
+
+_auction_launch.last_cluster = None      # CTAs per problem of the last launch
 
 
 def auction_assignment(cost: torch.Tensor, eps_final: float = 1e-6,

@@ -2,8 +2,9 @@
 
 Counterpart of the warm-up half of ``shwd_tpu/ops/sinkhorn_pallas.py``
 (``warmup_supported``, ``emd2_warmup_pallas``). ``emd2_warmup`` launches
-the hand-written CUDA kernel ``csrc/emd2_warmup.cu`` for a CUDA tensor and
-runs ``emd2_warmup_reference``, its plain PyTorch version, for a CPU
+the hand-written CUDA kernel ``csrc/emd2_warmup.cu`` (one persistent
+cooperative launch per call) for a CUDA tensor and runs
+``emd2_warmup_reference``, its plain PyTorch version, for a CPU
 tensor. Both follow the Pallas kernel's schedule and formulas: per-item
 eps0 = max|C|, temperatures recomputed from it at each scale, potentials
 not rescaled between temperatures, log-sums guarded at 1e-38.
@@ -82,10 +83,48 @@ def _lib():
     fn = lib.shwd_emd2_warmup
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, ci,
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, ci,
                        ci, vp]
         fn.restype = ci
-    return fn
+        lib.shwd_emd2_warmup_layout.argtypes = [ci, ci, ci, vp]
+        lib.shwd_emd2_warmup_layout.restype = ci
+        lib.shwd_emd2_warmup_exchanges.argtypes = [ci, ci, ci, ci, vp, vp]
+        lib.shwd_emd2_warmup_exchanges.restype = ci
+    return lib
+
+
+_layouts: dict[tuple, dict] = {}
+
+
+def warmup_layout(cost: torch.Tensor) -> dict:
+    """How the kernel lays a (B, N, M) CUDA cost out on its device: blocks
+    in the grid, rows per block, scratch slots per item, whether the rows
+    are resident in shared memory, whether g is cached there, dynamic
+    shared memory bytes."""
+    index = cost.device.index
+    key = (torch.cuda.current_device() if index is None else index, *cost.shape)
+    if key not in _layouts:               # asked once per device and shape
+        b, n, m = cost.shape
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(cost.device):
+            rc = _lib().shwd_emd2_warmup_layout(b, n, m, out)
+        _kernels.check(rc, "emd2_warmup layout")
+        _layouts[key] = dict(zip(("grid", "rows_per_block", "slots", "resident",
+                                  "g_cached", "smem_bytes"), (int(v) for v in out)))
+    return dict(_layouts[key])
+
+
+def warmup_exchanges(cost: torch.Tensor, count: int) -> None:
+    """Launch the kernel's chain with no arithmetic on the grid
+    ``emd2_warmup`` uses for ``cost``, to be timed: ``count`` exchanges in
+    which every block waits for a marked word of every other block (what an
+    iteration does twice)."""
+    b, n, m = cost.shape
+    marks = torch.empty(512, dtype=torch.float32, device=cost.device)
+    with torch.cuda.device(cost.device):
+        rc = _lib().shwd_emd2_warmup_exchanges(
+            b, n, m, count, marks.data_ptr(), _kernels.stream_ptr(cost))
+    _kernels.check(rc, "emd2_warmup exchanges")
 
 
 def emd2_warmup(cost: torch.Tensor, eps: float = 1e-5, num_iters: int = 40,
@@ -93,8 +132,8 @@ def emd2_warmup(cost: torch.Tensor, eps: float = 1e-5, num_iters: int = 40,
     """Annealed log-Sinkhorn duals of (B, N, M) costs, per-item eps0.
 
     Returns (val (B,), f (B, N), g (B, M)), forward only. A CUDA tensor
-    goes through the CUDA kernel (``2 * num_iters * num_scales + 2``
-    launches, no host sync); a CPU tensor through the plain version.
+    goes through the CUDA kernel (one cooperative launch, no host sync); a
+    CPU tensor through the plain version.
     """
     if not cost.is_cuda:
         return emd2_warmup_reference(cost, eps, num_iters, num_scales)
@@ -107,15 +146,20 @@ def emd2_warmup(cost: torch.Tensor, eps: float = 1e-5, num_iters: int = 40,
         raise ValueError("emd2_warmup needs num_iters >= 1 and num_scales >= 1")
     b, n, m = cost.shape
     log_et, log_a, log_b, log_ab = _logs(n, m, eps)
-    fn = _lib()
-    val = torch.empty(b, dtype=torch.float32, device=cost.device)
-    f = torch.empty(b, n, dtype=torch.float32, device=cost.device)
-    g = torch.empty(b, m, dtype=torch.float32, device=cost.device)
-    log_e0 = torch.empty(b, dtype=torch.float32, device=cost.device)
+    slots = warmup_layout(cost)["slots"]
+    f32 = dict(dtype=torch.float32, device=cost.device)
+    val = torch.empty(b, **f32)
+    f = torch.empty(b, n, **f32)
+    g = torch.empty(b, m, **f32)
+    log_e0 = torch.empty(b, **f32)
+    # per-block partials: a (max, sum) pair per column, one number per item;
+    # and g with its iteration mark
+    scratch = torch.empty(2 * b * m * (slots + 1) + b * slots, **f32)
     with torch.cuda.device(cost.device):
-        rc = fn(cost.data_ptr(), val.data_ptr(), f.data_ptr(), g.data_ptr(),
-                log_e0.data_ptr(), b, n, m, log_et, log_a, log_b, log_ab,
-                num_iters, num_scales, _kernels.stream_ptr(cost))
+        rc = _lib().shwd_emd2_warmup(
+            cost.data_ptr(), val.data_ptr(), f.data_ptr(), g.data_ptr(),
+            log_e0.data_ptr(), scratch.data_ptr(), b, n, m, log_et, log_a,
+            log_b, log_ab, num_iters, num_scales, _kernels.stream_ptr(cost))
     _kernels.check(rc, "emd2_warmup")
     emd2_warmup.launches += 1
     return val, f, g

@@ -44,17 +44,78 @@ def _lsa(c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 1200, 1200), (2, 300, 333)])
-def test_warmup_kernel_matches_reference(cuda, shape):
-    """K1 vs its plain version: val rtol 1e-3, f/g atol 1e-4."""
+@pytest.mark.parametrize("shape,eps", [
+    ((1, 1200, 1200), 1e-5), ((2, 300, 333), 1e-5),
+    ((4, 1500, 1536), 1e-5),     # more rows than the grid's shared memory holds
+    ((1, 1664, 1792), 1e-5),     # the size gate's edge: the next 128 columns fail it
+    ((3, 700, 800), 1e-5),       # blocks whose rows span two items
+    ((1, 8, 40000), 1e-5),       # g too wide for shared memory
+    # many items per block; at 16 x 24 the plan is a handful of entries, and
+    # val keeps 1e-3 only at a temperature that does not sharpen it to one
+    ((300, 16, 24), 1e-3),
+])
+def test_warmup_kernel_matches_reference(cuda, shape, eps):
+    """K1 vs its plain version: val rtol 1e-3, f/g atol 1e-4; and two calls
+    give the same bits (partials are merged in a fixed order)."""
     c = torch.from_numpy(_costs(*shape, seed=8)).to(cuda) / 12
-    v1, f1, g1 = tk.emd2_warmup(c, eps=1e-5, num_iters=40, num_scales=8)
-    v2, f2, g2 = tk.emd2_warmup_reference(c, eps=1e-5, num_iters=40,
-                                          num_scales=8)
+    kw = dict(eps=eps, num_iters=40, num_scales=8)
+    v1, f1, g1 = tk.emd2_warmup(c, **kw)
+    v2, f2, g2 = tk.emd2_warmup_reference(c, **kw)
+    v3, f3, g3 = tk.emd2_warmup(c, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(v1.cpu().numpy(), v2.cpu().numpy(), rtol=1e-3)
     np.testing.assert_allclose(f1.cpu().numpy(), f2.cpu().numpy(), atol=1e-4)
     np.testing.assert_allclose(g1.cpu().numpy(), g2.cpu().numpy(), atol=1e-4)
+    assert torch.equal(v1, v3) and torch.equal(f1, f3) and torch.equal(g1, g3)
+
+
+@pytest.mark.gpu
+def test_warmup_kernel_layouts(cuda):
+    """The flow shape is resident in shared memory; a batch that overflows
+    it streams its rows from global memory; the gate's edge is admitted."""
+    flow = tk.warmup_layout(torch.empty(1, 1200, 1200, device=cuda))
+    assert flow["resident"] == 1 and flow["g_cached"] == 1
+    assert flow["grid"] * flow["rows_per_block"] >= 1200
+    big = tk.warmup_layout(torch.empty(4, 1500, 1536, device=cuda))
+    assert big["resident"] == 0
+    assert tk.warmup_supported(1664, 1792) and not tk.warmup_supported(1664, 1920)
+
+
+@pytest.mark.gpu
+def test_warmup_kernel_is_one_launch_per_call(cuda):
+    """One call puts exactly one kernel on the device's timeline."""
+    c = torch.from_numpy(_costs(1, 1200, 1200, seed=8)).to(cuda) / 12
+    tk.emd2_warmup(c)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tk.emd2_warmup(c)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and not ev.name.startswith(("Memcpy", "Memset"))]
+    assert len(names) == 1 and "warmup_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+def test_warmup_kernel_is_captured_in_a_cuda_graph(cuda):
+    """The cooperative launch records into a CUDA graph and replays: the
+    replay on a new cost equals a direct call on it, bit for bit."""
+    kw = dict(eps=1e-5, num_iters=40, num_scales=8)
+    c1 = torch.from_numpy(_costs(1, 1200, 1200, seed=8)).to(cuda) / 12
+    c2 = torch.from_numpy(_costs(1, 1200, 1200, seed=18)).to(cuda) / 12
+    static = c1.clone()
+    tk.emd2_warmup(static, **kw)                 # build and set up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tk.emd2_warmup(static, **kw)
+    static.copy_(c2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tk.emd2_warmup(c2, **kw)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -77,14 +138,71 @@ def test_auction_kernel_matches_reference(cuda, b, n):
                                _lsa(c.cpu().numpy()), rtol=1e-4)
 
 
+def _tie_costs(b, n, seed):
+    """Small-integer entries with a duplicated row and a duplicated column:
+    ties in the best value, in the bids and between persons."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 4, size=(b, n, n)).astype(np.float32)
+    c[:, 1] = c[:, 0]
+    c[:, :, 3] = c[:, :, 2]
+    return c
+
+
 @pytest.mark.gpu
-def test_auction_kernel_screens_duplicate_seed(cuda):
-    """A seed claiming one object twice still yields a permutation."""
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("case", ["1x1200", "4x128", "128x128", "ties_3x61", "ties_2x128"])
+def test_auction_kernel_is_the_reference_at_every_cluster_size(cuda, case, cluster):
+    """K2 forced to each cluster size: the assignment, the prices and the
+    sweeps of the plain version, bit for bit, ties included (the 64-bit
+    key's order is the tie rule, so the split of the work cannot show)."""
+    if case.startswith("ties"):
+        b, n = (int(v) for v in case.split("_")[1].split("x"))
+        c = torch.from_numpy(_tie_costs(b, n, seed=21)).to(cuda)
+        kw = dict(max_sweeps=4000)
+    else:
+        b, n = (int(v) for v in case.split("x"))
+        c = torch.from_numpy(_costs(b, n, n, seed=9, spread=0.2)).to(cuda)
+        kw = dict(max_sweeps=4000, eps0=ta._hybrid_eps0(c, 1e-7),
+                  prices0=ta._sinkhorn_warm_prices(c, 1e-5, 40, 8).contiguous())
+    a1, p1, s1, _ = ta._auction_launch(c, 1e-7, 6.0, kw["max_sweeps"], kw.get("prices0"),
+                                       kw.get("eps0"), None, cluster=cluster)
+    assert ta._auction_launch.last_cluster == cluster
+    a2, p2, s2 = ta.auction_assignment_reference(c, 1e-7, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(p1, p2) and torch.equal(s1, s2)
+    for row in a1.cpu().numpy():
+        assert sorted(row.tolist()) == list(range(n))
+
+
+@pytest.mark.gpu
+def test_auction_wrapper_picks_the_cluster_from_the_batch(cuda):
+    """One problem gets a cluster of 16 (one CTA where the card reports no
+    room for such a cluster), 128 problems one CTA each."""
+    one = torch.from_numpy(_costs(1, 96, 96, seed=2, spread=0.3)).to(cuda)
+    ta.auction_assignment(one, 1e-6)
+    assert ta._auction_launch.last_cluster == (16 if ta._device_fits16(cuda, 96) else 1)
+    many = torch.from_numpy(_costs(128, 32, 32, seed=2, spread=0.3)).to(cuda)
+    ta.auction_assignment(many, 1e-6)
+    assert ta._auction_launch.last_cluster == 1
+    with pytest.raises(ValueError):
+        ta._auction_launch(one, 1e-6, 6.0, 2000, None, None, None, cluster=3)
+    with pytest.raises(ValueError):          # more objects than shared memory holds
+        ta.auction_assignment(torch.zeros(1, 9700, 9700, device=cuda), 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 16])
+def test_auction_kernel_screens_duplicate_seed(cuda, cluster):
+    """A seed claiming one object twice still yields a permutation, on one
+    CTA and on a cluster of 16 (every CTA screens its own copy)."""
     c = torch.from_numpy(_costs(2, 64, 64, seed=3, spread=0.3)).to(cuda)
     seed = torch.arange(64, dtype=torch.int32, device=cuda).repeat(2, 1)
     seed[0, 3] = seed[0, 7]
-    a, _, _ = ta.auction_assignment(c, 1e-7, eps0=1e-3, assign0=seed,
-                                    max_sweeps=4000)
+    eps0 = torch.full((1,), 1e-3, device=cuda)
+    a, p, _, _ = ta._auction_launch(c, 1e-7, 6.0, 4000, None, eps0, seed, cluster=cluster)
+    a2, p2, _ = ta.auction_assignment_reference(c, 1e-7, eps0=eps0, assign0=seed,
+                                                max_sweeps=4000)
+    assert torch.equal(a, a2) and torch.equal(p, p2)
     for row in a.cpu().numpy():
         assert sorted(row.tolist()) == list(range(64))
     np.testing.assert_allclose(ta._assignment_cost(c, a).cpu().numpy(),

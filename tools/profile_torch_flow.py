@@ -31,7 +31,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-K1_KERNELS = ("f_pass", "g_pass", "warmup_init", "warmup_value")
+K1_KERNELS = ("warmup_kernel",)
 K2_KERNELS = ("auction_kernel",)
 
 
