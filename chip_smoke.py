@@ -17,8 +17,13 @@ Phases, each printing one JSON line:
      warm-up and seeded with the previous solve's matching; the flow's
      seeded solve is checked after the flow of phase 4, on the inputs of
      its last launch), the fused point-cloud Sinkhorn with its gradient
-     (K3: the train batch 128x128x128 and the eval batch 51x128x128), the
-     tiled Chamfer (K4: the flow's eval metric, 1x1200x1200);
+     (K3: its register route at the train batch 128x128x128 and the eval
+     batch 51x128x128, a ragged batch in every cost kind and a tiny one,
+     its general route at 3x100x130 in every cost kind; the general route
+     timed beside the register route), the tiled Chamfer (K4: the flow's
+     eval metric, 1x1200x1200, with the launch floor of its one
+     cooperative launch); K1, K3 and K4 must give the same
+     bits on two calls;
   4. slice 1: the Flow_cube SHWD gradient flow through
      shwd_torch.train.flow_driver.run_flow (1200 points, 5 Residual
      layers, hybrid exact-EMD solver, 400 iterations), with the kernels'
@@ -37,8 +42,8 @@ Phases, each printing one JSON line:
      loss must fall and the validation rotation error must end on the
      plateau of about 40 deg that the JAX trainer reaches on this bank;
   6. launches per call: one call of each wrapper under torch.profiler, the
-     CUDA kernels on the device's timeline counted and checked (1 for K1,
-     K2 and K3; 3 for K4);
+     CUDA kernels on the device's timeline counted and checked (1 for each
+     of K1-K4);
 then the kernel table ({"kernels": [...]}; "launches" counts the wrapper's
 calls on the main path, "launches_per_call" is phase 6's count), the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
@@ -399,25 +404,52 @@ def registration_clouds(dev):
     return x.contiguous(), y.contiguous()
 
 
+def k3_bound(b, n, m):
+    """K3's least time for B items of N x M at REG_SINK (the largest of the
+    bytes, f32 and transcendental terms)."""
+    entries = b * n * m
+    sweeps = REG_SINK["num_iters"] * REG_SINK["num_scales"]
+    # per entry per half-iteration: 2 sub, compare/max, sub, add, exp ~ 6
+    # ops; plus the cost build (8), one division per temperature, the value
+    # pass (7)
+    ops = entries * (2 * sweeps * 6 + 8 + REG_SINK["num_scales"] + 7)
+    # one exp per entry per half-iteration and in the value pass, one log
+    # per row and per column each iteration
+    transcendentals = entries * (2 * sweeps + 1) + sweeps * (b * n + b * m)
+    bytes_moved = (b * n * 3 + b * m * 3) * 4 + (b + b * n + b * m) * 4
+    return bound_ms(bytes_moved, ops, transcendentals)
+
+
 def check_sinkhorn_points(dev):
-    """K3 vs sinkhorn_points_reference: the registration trainer's train
-    batch (128) and eval batch (the 51 validation shapes), a ragged odd
-    batch for every cost kind; then its gradient."""
+    """K3 vs sinkhorn_points_reference on both routes: the register route
+    at the registration trainer's train batch (128) and eval batch (the 51
+    validation shapes), a ragged batch in every cost kind and a tiny one
+    (masking); the general route at a ragged batch wider than 128 in every
+    cost kind. Two calls must give the same bits. Then the gradient, and
+    the timings of the train and eval batches, each with the general route
+    (the kernel before the register route) timed beside it."""
     from shwd_torch.ops import sinkhorn_fused as sp
     from shwd_torch.ops.costs import cost_matrix
     reg_x, reg_y = registration_clouds(dev)
     rag_x, rag_y = rand_clouds(3, 100, 130, 4, dev)
+    r120_x, r120_y = rand_clouds(3, 100, 120, 6, dev)
+    tiny_x, tiny_y = rand_clouds(2, 7, 9, 7, dev)
     val_x, val_y = reg_x[:REG_VAL].contiguous(), reg_y[:REG_VAL].contiguous()
-    cases = (("registration_128x128x128_lp", reg_x, reg_y, "lp", 2.0),
+    cases = [("registration_128x128x128_lp", reg_x, reg_y, "lp", 2.0),
              (f"registration_eval_{REG_VAL}x128x128_lp", val_x, val_y, "lp", 2.0),
-             ("ragged_3x100x130_lp", rag_x, rag_y, "lp", 2.0),
-             ("ragged_3x100x130_cosine", rag_x, rag_y, "cosine", 1.0),
-             ("ragged_3x100x130_geodesic", rag_x, rag_y, "geodesic", 2.0))
+             ("tiny_2x7x9_lp", tiny_x, tiny_y, "lp", 2.0)]
+    for kind, p in (("lp", 2.0), ("cosine", 1.0), ("geodesic", 2.0)):
+        cases += [(f"ragged_3x100x120_{kind}", r120_x, r120_y, kind, p),
+                  (f"ragged_3x100x130_{kind}", rag_x, rag_y, kind, p)]
     report = {}
     for name, x, y, kind, p in cases:
         v1, f1, g1 = sp._fused_forward(x, y, kind, p, **REG_SINK)
+        route = sp._fused_forward.last_route
+        again = sp._fused_forward(x, y, kind, p, **REG_SINK)
         v2, f2, g2 = sp.sinkhorn_points_reference(x, y, kind, p, **REG_SINK)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((v1, f1, g1), again)),
+              f"K3 {name}: two calls differ")
         for t in (v1, f1, g1):
             check(bool(torch.isfinite(t).all()), f"K3 {name}: non-finite output")
         val_rel = float(((v1 - v2).abs() / v2.abs()).max())
@@ -425,8 +457,10 @@ def check_sinkhorn_points(dev):
         g_err = float((g1 - g2).abs().max())
         check(val_rel <= 1e-3, f"K3 {name}: val rel err {val_rel}")
         check(f_err <= 1e-4 and g_err <= 1e-4, f"K3 {name}: f/g err {f_err} {g_err}")
-        report[name] = {"val_rel_err": val_rel, "f_abs_err": f_err,
-                        "g_abs_err": g_err}
+        report[name] = {"route": route, "val_rel_err": val_rel,
+                        "f_abs_err": f_err, "g_abs_err": g_err}
+        check(route == sp.pick_route(x.shape[1], y.shape[1]),
+              f"K3 {name}: took the {route} route")
     # the gradient through the autograd.Function against autograd through
     # the plain version's envelope (its duals, the same differentiable cost)
     weights = torch.arange(1.0, 4.0, device=dev)
@@ -444,25 +478,20 @@ def check_sinkhorn_points(dev):
     check(grad_err <= 1e-5, f"K3 gradient: abs err {grad_err} (size {grad_size})")
     report["gradient_3x100x130_lp"] = {"abs_err": grad_err, "max_abs_grad": grad_size}
 
+    def run(x, y, **kw):
+        return lambda: sp._fused_forward(x, y, "lp", 2.0, **REG_SINK, **kw)
+
     timing = {}
     for name, x, y in (("train_128x128x128", reg_x, reg_y),
                        (f"eval_{REG_VAL}x128x128", val_x, val_y)):
-        b, n, m = x.shape[0], x.shape[1], y.shape[1]
-        entries = b * n * m
-        sweeps = REG_SINK["num_iters"] * REG_SINK["num_scales"]
-        # per entry per half-iteration: 2 sub, compare/max, sub, add, exp ~ 6
-        # ops; plus the cost build (8), one division per temperature, the
-        # value pass (7)
-        ops = entries * (2 * sweeps * 6 + 8 + REG_SINK["num_scales"] + 7)
-        # one exp per entry per half-iteration and in the value pass, one log
-        # per row and per column each iteration
-        transcendentals = entries * (2 * sweeps + 1) + sweeps * (b * n + b * m)
-        bytes_moved = (b * n * 3 + b * m * 3) * 4 + (b + b * n + b * m) * 4
-        bnd, by, terms = bound_ms(bytes_moved, ops, transcendentals)
+        bnd, by, terms = k3_bound(x.shape[0], x.shape[1], y.shape[1])
+        run(x, y)()
         timing[name] = {
-            "ms": time_ms(lambda: sp._fused_forward(x, y, "lp", 2.0, **REG_SINK), reps=9),
+            "route": sp._fused_forward.last_route,
+            "ms": time_ms(run(x, y), reps=9, ahead=True),
             "plain_ms": time_ms(lambda: sp.sinkhorn_points_reference(
                 x, y, "lp", 2.0, **REG_SINK), reps=3),
+            "general_route_ms": time_ms(run(x, y, route="general"), reps=5, ahead=True),
             "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
     emit({"phase": "kernel_check", "kernel": "sinkhorn_points", "checks": report,
           "timing": timing})
@@ -474,28 +503,34 @@ def check_sinkhorn_points(dev):
             "replaces": "shwd_tpu/ops/sinkhorn_pallas.py:202",
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "eval": timing[f"eval_{REG_VAL}x128x128"]}
+            "library_ms": None, "kernel_route": t["route"],
+            "general_route_ms": t["general_route_ms"],
+            "eval": timing[f"eval_{REG_VAL}x128x128"]}
 
 
 def check_chamfer(dev):
     """K4 vs chamfer_tiled_reference and the dense chamfer: the flow's eval
     metric (one pair of 1200-point clouds), a batch of registration clouds
-    and a ragged large shape."""
-    from shwd_torch.ops.chamfer import (chamfer, chamfer_tiled,
-                                        chamfer_tiled_reference)
+    and a ragged large shape; two calls must give the same bits. Timed with
+    its launch floor: the same cooperative launch with an empty body."""
+    from shwd_torch.ops.chamfer import (chamfer, chamfer_chunks, chamfer_launch_floor,
+                                        chamfer_tiled, chamfer_tiled_reference)
     src, tgt = flow_clouds(dev)
     reg_x, reg_y = registration_clouds(dev)
     big_x, big_y = rand_clouds(2, 5000, 4099, 5, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     report, timing = {}, {}
     for name, x, y in (("flow_eval_1x1200x1200", src[None].contiguous(),
                         tgt[None].contiguous()),
                        ("batched_128x128x128", reg_x, reg_y),
                        ("ragged_2x5000x4099", big_x, big_y)):
         got = chamfer_tiled(x, y)
+        again = chamfer_tiled(x, y)
         ref = chamfer_tiled_reference(x, y)
         dense = chamfer(x, y)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got)), f"K4 {name}: non-finite output")
+        check(bool(torch.equal(got, again)), f"K4 {name}: two calls differ")
         err_ref = abs(float(got) - float(ref))
         err_dense = abs(float(got) - float(dense))
         # rtol 1e-5: the same squared differences, fused multiply-adds in
@@ -505,12 +540,15 @@ def check_chamfer(dev):
         b, n, m = x.shape[0], x.shape[1], y.shape[1]
         # 8 f32 operations per pair and side; the clouds in, one scalar out
         bnd, by, terms = bound_ms(12 * b * (n + m) + 4, 16 * b * n * m)
-        timing[name] = {"ms": time_ms(lambda: chamfer_tiled(x, y), reps=9),
+        timing[name] = {"ms": time_ms(lambda: chamfer_tiled(x, y), reps=9, ahead=True),
+                        "launch_floor_ms": time_ms(lambda: chamfer_launch_floor(x, y),
+                                                   reps=9, ahead=True),
                         "plain_ms": time_ms(lambda: chamfer_tiled_reference(x, y)),
                         "dense_ms": time_ms(lambda: chamfer(x, y)),
+                        "chunks": chamfer_chunks(b, n, m, sms),
                         "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
         report[name] = {"abs_err_vs_plain": err_ref, "abs_err_vs_dense": err_dense,
-                        "value": float(got)}
+                        "same_bits": True, "value": float(got)}
     emit({"phase": "kernel_check", "kernel": "chamfer_tiled", "checks": report,
           "timing": timing})
     t = timing["flow_eval_1x1200x1200"]
@@ -519,7 +557,9 @@ def check_chamfer(dev):
             "replaces": "shwd_tpu/ops/chamfer.py:100",
             "max_abs_err": max(r["abs_err_vs_plain"] for r in report.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None}
+            "bound_by": t["bound_by"], "library_ms": None,
+            "launch_floor_ms": t["launch_floor_ms"],
+            "large": timing["ragged_2x5000x4099"]}
 
 
 def flow_config():
@@ -728,9 +768,8 @@ def phase_launches_per_call(dev, kernels):
     """How many CUDA kernels one call of each wrapper puts on the card, at
     its main path's shape, counted on the device's timeline: 1 for the
     warm-up, the auction (prices and eps0 given, as every main path gives
-    them) and the fused Sinkhorn, 3 for the Chamfer (a minimum per side and
-    the mean). Runs after the main paths, so the profiler touches none of
-    their times."""
+    them), the fused Sinkhorn and the Chamfer. Runs after the main paths,
+    so the profiler touches none of their times."""
     from shwd_torch.ops import auction as au
     from shwd_torch.ops import sinkhorn_fused as sp
     from shwd_torch.ops import sinkhorn_kernels as sk
@@ -749,7 +788,7 @@ def phase_launches_per_call(dev, kernels):
             flow_cost, EPS_FINAL, max_sweeps=4000, prices0=prices0, eps0=eps0)),
         "sinkhorn_points": (1, lambda: sp._fused_forward(
             reg_x, reg_y, "lp", 2.0, **REG_SINK)),
-        "chamfer_tiled": (3, lambda: chamfer_tiled(fx, fy))}
+        "chamfer_tiled": (1, lambda: chamfer_tiled(fx, fy))}
     seen = {}
     for k in kernels:
         want, fn = calls[k["name"]]

@@ -1,4 +1,5 @@
-// Tiled two-sided Chamfer distance that never forms the (N, M) matrix.
+// Tiled two-sided Chamfer distance that never forms the (N, M) matrix, in
+// one launch.
 //
 // Replaces: shwd_tpu/ops/chamfer.py::chamfer_pallas (kernel
 // _chamfer_tile_kernel), the VMEM-tiled Chamfer for large clouds.
@@ -11,92 +12,259 @@
 //   unit; the direct form is exact where that cancels).
 //
 // What bounds it on the H100: 8 f32 operations per pair and side (three
-// subtractions, three multiply-adds, a minimum), 16 B N M in all (0.034 G
-// at 128 x 128 x 128, 0.66 G at 2 x 5000 x 4099), against 12 (N + M) B
-// bytes in: operations by a wide margin.
+// subtractions, three multiply-adds, a minimum), 16 B N M in all (0.023 G
+// at 1 x 1200 x 1200, 0.66 G at 2 x 5000 x 4099), against 12 (N + M) B
+// bytes in: operations by a wide margin. At the flow's shape the work is
+// ~0.3 us on the card, so one launch's latency and the two grid barriers
+// set the pace.
 //
-// Design (simple first): the TPU grid walks (item, row tile, column tile)
-// in order and revisits its output blocks; blocks here run in parallel, so
-//   - chamfer_min: a grid over (row tile, item); each thread owns one
-//     point of the first cloud and keeps its running minimum in a
-//     register while the block walks the second cloud through shared
-//     memory in tiles of 1024 points (every thread reads the same word: a
-//     broadcast). Bounds replace the TPU version's far-away padding rows;
-//   - the same kernel with the clouds swapped gives the other side;
-//   - chamfer_mean: one block sums both sides in a fixed order (double
-//     accumulators) and writes the scalar, so the result is deterministic.
-//   Three launches per call, no host sync.
+// Design: one cooperative launch, no memset, no atomics.
+//   - Units of work: (chunk k, item, side, row tile). A side's row tile is
+//     1024 points of its cloud, 4 per thread in registers; chunk k is the
+//     k-th of `chunks` equal slices of the other cloud, copied to shared
+//     memory as 16-byte points (padded to 4 floats) and read once per 4
+//     pairs, a broadcast. The caller picks `chunks` so that the units fill
+//     the SMs (ops/chamfer.py::chamfer_chunks): at (1, 1200, 1200) 33
+//     chunks of 37 points, 132 units.
+//   - Each unit writes its rows' minima over its chunk to a scratch
+//     (chunks, B, N + M); blocks walk the units grid-stride.
+//   - Grid barrier; then every thread takes entries of the scratch, the
+//     minimum over the chunks (exact in any order), and sums them per side
+//     in double; the block sums its threads in a fixed tree and writes one
+//     pair of partial sums.
+//   - Grid barrier; block 0 sums the partials in block order and writes
+//     sum_x / (B N) + sum_y / (B M). The grid is a function of the device
+//     and the shape, so every call gives the same bits, and the launch
+//     records into a CUDA graph.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRows = 256;        // points of the first cloud per block
-constexpr int kTile = 1024;       // points of the second cloud per tile
-constexpr int kMeanThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPts = 4;                       // points of its side per thread
+constexpr int kTileRows = kThreads * kPts;    // points of a side per unit
+constexpr int kMaxChunk = 1024;               // points of the other cloud per unit
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kRows)
-chamfer_min(const float* __restrict__ a, const float* __restrict__ b, int na,
-            int nb, float* __restrict__ mins) {
-  __shared__ float tile[3 * kTile];
-  const int item = blockIdx.y;
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const float* ai = a + ((size_t)item * na + (i < na ? i : 0)) * 3;
-  const float a0 = ai[0], a1 = ai[1], a2 = ai[2];
-  const float* bb = b + (size_t)item * nb * 3;
-  float best = INFINITY;
-  for (int j0 = 0; j0 < nb; j0 += kTile) {
-    const int cnt = nb - j0 < kTile ? nb - j0 : kTile;
-    __syncthreads();
-    for (int k = threadIdx.x; k < 3 * cnt; k += kRows) tile[k] = bb[(size_t)3 * j0 + k];
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float d0 = a0 - tile[3 * j], d1 = a1 - tile[3 * j + 1],
-                  d2 = a2 - tile[3 * j + 2];
-      best = fminf(best, d0 * d0 + d1 * d1 + d2 * d2);
-    }
-  }
-  if (i < na) mins[(size_t)item * na + i] = best;
+struct Layout {
+  int tiles_x, tiles_y;     // row tiles of each side
+  int chunk_x, chunk_y;     // points of y per unit of side x, of x per unit of side y
+  long long units, entries; // units of work; B (N + M)
+};
+
+Layout make_layout(int batch, int n, int m, int chunks) {
+  Layout l;
+  l.tiles_x = (n + kTileRows - 1) / kTileRows;
+  l.tiles_y = (m + kTileRows - 1) / kTileRows;
+  l.chunk_x = (m + chunks - 1) / chunks;
+  l.chunk_y = (n + chunks - 1) / chunks;
+  l.units = (long long)chunks * batch * (l.tiles_x + l.tiles_y);
+  l.entries = (long long)batch * (n + m);
+  return l;
 }
 
-__global__ void __launch_bounds__(kMeanThreads)
-chamfer_mean(const float* __restrict__ minx, const float* __restrict__ miny,
-             long long nx, long long ny, float* __restrict__ out) {
-  __shared__ double red[kMeanThreads / 32];
-  double sx = 0.0, sy = 0.0;
-  for (long long i = threadIdx.x; i < nx; i += kMeanThreads) sx += (double)minx[i];
-  for (long long j = threadIdx.x; j < ny; j += kMeanThreads) sy += (double)miny[j];
-  double v = sx / (double)nx + sy / (double)ny;
+// the minima per chunk, rounded up so the block partials after them are
+// 16-byte aligned
+__host__ __device__ __forceinline__ long long mins_floats(const Layout& l, int chunks) {
+  return ((long long)chunks * l.entries + 3) & ~3LL;
+}
+
+long long scratch_floats(const Layout& l, int chunks, long long grid) {
+  return mins_floats(l, chunks) + 4 * grid;     // a double pair per block
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  return v;
+}
+
+// fixed-order block sum of a pair; valid in thread 0
+__device__ double2 block_sum2(double a, double b, double2* red) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_double2(a, b);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    double total = 0.0;
-    for (int k = 0; k < kMeanThreads / 32; ++k) total += red[k];
-    out[0] = (float)total;
+  double2 r = red[0];
+  for (int k = 1; k < kWarps; ++k) {
+    r.x += red[k].x;
+    r.y += red[k].y;
   }
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+chamfer_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               float* scratch, float* __restrict__ out, int batch, int n, int m,
+               int chunks, Layout l) {
+  __shared__ float4 tile[kMaxChunk];
+  __shared__ double2 red[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int per_chunk = batch * (l.tiles_x + l.tiles_y);
+  float* mins = scratch;
+  double2* parts = reinterpret_cast<double2*>(scratch + mins_floats(l, chunks));
+
+  // ---- minima of each unit's rows over its chunk ----
+  for (long long u = blockIdx.x; u < l.units; u += gridDim.x) {
+    const int k = (int)(u / per_chunk);
+    const int rest = (int)(u - (long long)k * per_chunk);
+    const int item = rest / (l.tiles_x + l.tiles_y);
+    const int q = rest - item * (l.tiles_x + l.tiles_y);
+    const bool side_x = q < l.tiles_x;
+    const int tile_i = side_x ? q : q - l.tiles_x;
+    const float* rows = side_x ? x + (size_t)item * n * 3 : y + (size_t)item * m * 3;
+    const float* other = side_x ? y + (size_t)item * m * 3 : x + (size_t)item * n * 3;
+    const int nrows = side_x ? n : m, nother = side_x ? m : n;
+    const int chunk = side_x ? l.chunk_x : l.chunk_y;
+    const int j0 = min(nother, k * chunk), j1 = min(nother, j0 + chunk);
+    __syncthreads();                        // the previous unit's tile is read
+    for (int j = j0 + tid; j < j1; j += kThreads) {
+      const float* o = other + (size_t)j * 3;
+      tile[j - j0] = make_float4(o[0], o[1], o[2], 0.0f);
+    }
+    __syncthreads();
+    float a0[kPts], a1[kPts], a2[kPts], best[kPts];
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      const int i = tile_i * kTileRows + p * kThreads + tid;
+      const float* a = rows + (size_t)(i < nrows ? i : 0) * 3;
+      a0[p] = a[0];
+      a1[p] = a[1];
+      a2[p] = a[2];
+      best[p] = INFINITY;
+    }
+    for (int j = 0; j < j1 - j0; ++j) {
+      const float4 o = tile[j];
+#pragma unroll
+      for (int p = 0; p < kPts; ++p) {
+        const float d0 = a0[p] - o.x, d1 = a1[p] - o.y, d2 = a2[p] - o.z;
+        best[p] = fminf(best[p], d0 * d0 + d1 * d1 + d2 * d2);
+      }
+    }
+    float* dst = mins + (long long)k * l.entries + (long long)item * (n + m) + (side_x ? 0 : n);
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      const int i = tile_i * kTileRows + p * kThreads + tid;
+      if (i < nrows) dst[i] = best[p];
+    }
+  }
+  grid.sync();
+
+  // ---- minimum over the chunks, sums per side ----
+  double sx = 0.0, sy = 0.0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long e = (long long)blockIdx.x * kThreads + tid; e < l.entries; e += stride) {
+    float v = __ldcg(mins + e);
+#pragma unroll 8
+    for (int k = 1; k < chunks; ++k) v = fminf(v, __ldcg(mins + (long long)k * l.entries + e));
+    if (e % (n + m) < n) {
+      sx += (double)v;
+    } else {
+      sy += (double)v;
+    }
+  }
+  const double2 blk = block_sum2(sx, sy, red);
+  if (tid == 0) parts[blockIdx.x] = blk;
+  grid.sync();
+
+  // ---- block 0: the partials in block order ----
+  if (blockIdx.x == 0) {
+    __syncthreads();                         // red is read above
+    double px = 0.0, py = 0.0;
+    for (int k = tid; k < (int)gridDim.x; k += kThreads) {
+      const double2 v = __ldcg(parts + k);
+      px += v.x;
+      py += v.y;
+    }
+    const double2 tot = block_sum2(px, py, red);
+    if (tid == 0)
+      out[0] = (float)(tot.x / ((double)batch * n) + tot.y / ((double)batch * m));
+  }
+}
+
+// the same launch with nothing in it: the floor any one launch of this
+// grid pays
+__global__ void __launch_bounds__(kThreads) chamfer_empty_kernel() {}
+
+int g_grid_cap[kMaxDevices];    // resident blocks on the device, 0 until asked
+
+cudaError_t grid_for(const Layout& l, int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_grid_cap[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chamfer_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    g_grid_cap[dev] = per_sm * sms;
+  }
+  *grid = (int)(l.units < g_grid_cap[dev] ? l.units : g_grid_cap[dev]);
+  return cudaSuccess;
+}
+
+cudaError_t check_args(int batch, int n, int m, int chunks) {
+  if (batch < 1 || n < 1 || m < 1 || chunks < 1) return cudaErrorInvalidValue;
+  const Layout l = make_layout(batch, n, m, chunks);
+  if (l.chunk_x > kMaxChunk || l.chunk_y > kMaxChunk) return cudaErrorInvalidValue;
+  if (l.units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of scratch one call needs (the minima per chunk, then a double
+// pair per block); 0 for arguments the kernel does not take (a chunk of
+// more than 1024 points). Asks the device for its resident blocks once.
+long long shwd_chamfer_scratch_floats(int batch, int n, int m, int chunks) {
+  if (check_args(batch, n, m, chunks) != cudaSuccess) return 0;
+  const Layout l = make_layout(batch, n, m, chunks);
+  int grid = 0;
+  if (grid_for(l, &grid) != cudaSuccess) return 0;
+  return scratch_floats(l, chunks, grid);
+}
+
 // x (B, n, 3), y (B, m, 3) f32 contiguous -> out (1,) = mean(minx) +
-// mean(miny); minx (B, n) and miny (B, m) are written on the way.
-// Returns the CUDA error of the last launch.
-int shwd_chamfer_tiled(const float* x, const float* y, float* minx,
-                       float* miny, float* out, int batch, int n, int m,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 gx((n + kRows - 1) / kRows, batch);
-  const dim3 gy((m + kRows - 1) / kRows, batch);
-  chamfer_min<<<gx, kRows, 0, st>>>(x, y, n, m, minx);
-  chamfer_min<<<gy, kRows, 0, st>>>(y, x, m, n, miny);
-  chamfer_mean<<<1, kMeanThreads, 0, st>>>(minx, miny, (long long)batch * n,
-                                           (long long)batch * m, out);
-  return (int)cudaGetLastError();
+// mean(miny); scratch as shwd_chamfer_scratch_floats says (16-byte
+// aligned). One cooperative launch; returns its error code.
+int shwd_chamfer_tiled(const float* x, const float* y, float* scratch, float* out,
+                       int batch, int n, int m, int chunks, void* stream) {
+  cudaError_t err = check_args(batch, n, m, chunks);
+  if (err != cudaSuccess) return (int)err;
+  Layout l = make_layout(batch, n, m, chunks);
+  int grid = 0;
+  err = grid_for(l, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&x, &y, &scratch, &out, &batch, &n, &m, &chunks, &l};
+  return (int)cudaLaunchCooperativeKernel((const void*)chamfer_kernel, dim3(grid),
+                                          dim3(kThreads), args, 0,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// The launch floor of the call above, for measurements only: the same
+// cooperative launch, grid and block with an empty body.
+int shwd_chamfer_empty(int batch, int n, int m, int chunks, void* stream) {
+  cudaError_t err = check_args(batch, n, m, chunks);
+  if (err != cudaSuccess) return (int)err;
+  const Layout l = make_layout(batch, n, m, chunks);
+  int grid = 0;
+  err = grid_for(l, &grid);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaLaunchCooperativeKernel((const void*)chamfer_empty_kernel, dim3(grid),
+                                          dim3(kThreads), nullptr, 0,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,7 +7,9 @@ Counterpart of the fused half of ``shwd_tpu/ops/sinkhorn_pallas.py``
 ``sinkhorn_points_reference``, its plain PyTorch version, for CPU tensors.
 Both follow the TPU kernel's formulas: the cost built from the raw clouds,
 per-item eps0 = max|C|, scaled potentials rescaled between temperatures,
-``C / e`` as a division.
+``C / e`` as a division. The kernel has two routes, chosen by shape
+(``pick_route``): tiles up to 128 x 128 held in registers, larger tiles in
+shared memory or a global scratch; one CTA per item on either.
 
 The gradient uses the envelope convention of ``ops.sinkhorn``: the plan is
 formed from the detached duals and pulled back through a differentiable
@@ -128,17 +130,34 @@ def _lib():
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf,
-                       cf, cf, ci, ci, vp]
+                       cf, cf, ci, ci, ci, vp]
         fn.restype = ci
         lib.shwd_sinkhorn_points_tile_in_smem.argtypes = [ci, ci]
         lib.shwd_sinkhorn_points_tile_in_smem.restype = ci
     return lib
 
 
+REG_TILE = 128                 # the register route's largest N and M
+_ROUTES = {"general": 0, "registers": 1}
+
+
+def pick_route(n: int, m: int) -> str:
+    """The kernel's route for items of N x M: tiles up to 128 x 128 are
+    held in registers ("registers": one CTA of 1024 threads per item);
+    larger tiles take the "general" route (tiles in shared memory or a
+    global scratch)."""
+    return "registers" if n <= REG_TILE and m <= REG_TILE else "general"
+
+
 def _fused_forward(x: torch.Tensor, y: torch.Tensor, kind: str, p: float,
-                   eps: float, num_iters: int, num_scales: int):
+                   eps: float, num_iters: int, num_scales: int,
+                   route: str | None = None):
     """(val, f, g) of detached clouds: the CUDA kernel for CUDA tensors
-    (one launch, no host sync), the plain version for CPU tensors."""
+    (one launch, no host sync), the plain version for CPU tensors.
+
+    ``route`` forces the kernel's route ("registers" or "general"); by
+    default ``pick_route`` chooses it from the shape. The route taken is
+    kept in ``_fused_forward.last_route``."""
     _check_kind(kind, p)
     x, y = x.detach(), y.detach()
     if not x.is_cuda:
@@ -155,23 +174,31 @@ def _fused_forward(x: torch.Tensor, y: torch.Tensor, kind: str, p: float,
                          "num_scales >= 1")
     x, y = x.contiguous(), y.contiguous()
     b, n, m = x.shape[0], x.shape[1], y.shape[1]
-    lib = _lib()
     dev = x.device
+    route = pick_route(n, m) if route is None else route
+    if route not in _ROUTES or (route == "registers" and max(n, m) > REG_TILE):
+        raise ValueError(f"sinkhorn_points: no route {route!r} for N={n}, M={m}")
+    lib = _lib()
     val = torch.empty(b, dtype=torch.float32, device=dev)
     f = torch.empty(b, n, dtype=torch.float32, device=dev)
     g = torch.empty(b, m, dtype=torch.float32, device=dev)
     scratch = None
-    if not lib.shwd_sinkhorn_points_tile_in_smem(n, m):
+    if route == "general" and not lib.shwd_sinkhorn_points_tile_in_smem(n, m):
         scratch = torch.empty(b, 2, n, m, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.shwd_sinkhorn_points(
             x.data_ptr(), y.data_ptr(), val.data_ptr(), f.data_ptr(),
             g.data_ptr(), None if scratch is None else scratch.data_ptr(),
             b, n, m, _KINDS[kind], p, eps, math.log(eps), -math.log(n),
-            -math.log(m), num_iters, num_scales, _kernels.stream_ptr(x))
+            -math.log(m), num_iters, num_scales, _ROUTES[route],
+            _kernels.stream_ptr(x))
     _kernels.check(rc, "sinkhorn_points")
     sinkhorn_points.launches += 1
+    _fused_forward.last_route = route
     return val, f, g
+
+
+_fused_forward.last_route = None
 
 
 class _SinkhornPoints(torch.autograd.Function):

@@ -68,3 +68,34 @@ def test_tiled_equals_dense_and_cpu_wrapper_takes_the_plain_version():
     before = chamfer_tiled.launches
     np.testing.assert_allclose(float(chamfer_tiled(x, y)), dense, rtol=1e-6)
     assert chamfer_tiled.launches == before
+
+
+@pytest.mark.parametrize("b,n,m,sms", [
+    (1, 1200, 1200, 132), (2, 5000, 4099, 132), (128, 128, 128, 132),
+    (1, 7, 3, 132), (1, 40000, 8, 132), (4, 3000, 2000, 132), (1, 1200, 1200, 1),
+])
+def test_chamfer_chunks_fill_the_card_within_shared_memory(b, n, m, sms):
+    """The kernel's slices of the other cloud hold at most 1024 points (its
+    shared memory); its units (slices x items x row tiles of both sides)
+    give every SM one, unless slices would fall below 32 points."""
+    from shwd_torch.ops.chamfer import MAX_CHUNK, MIN_CHUNK, TILE_ROWS, chamfer_chunks
+    k = chamfer_chunks(b, n, m, sms)
+    assert k >= 1
+    assert -(-n // k) <= MAX_CHUNK and -(-m // k) <= MAX_CHUNK
+    units = k * b * (-(-n // TILE_ROWS) + -(-m // TILE_ROWS))
+    assert units >= sms or -(-min(n, m) // k) <= MIN_CHUNK or k == 1
+    if (b, n, m, sms) == (1, 1200, 1200, 132):
+        assert k == 33 and units == 132
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 7])
+def test_chunked_minima_match_pallas_interpret(chunks):
+    """The minima taken over the kernel's slices (each side's rows against
+    `chunks` equal slices of the other cloud) equal chamfer_pallas in
+    interpret mode: atol 2e-5, the rounding of its x^2 + y^2 - 2xy."""
+    x, y = _clouds(2, 90, 61, seed=35)
+    want = jc.chamfer_pallas(jnp.asarray(x), jnp.asarray(y), tile_n=32,
+                             tile_m=32, interpret=True)
+    got = chamfer_tiled_reference(torch.from_numpy(x), torch.from_numpy(y),
+                                  tile_n=-(-90 // chunks), tile_m=-(-61 // chunks))
+    np.testing.assert_allclose(float(got), float(want), atol=2e-5)

@@ -7,6 +7,11 @@ imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -252,6 +257,66 @@ def test_sinkhorn_points_kernel_matches_reference(cuda, shape, kind, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,p", [
+    ((128, 128, 128), "lp", 2.0), ((51, 128, 128), "lp", 2.0),
+    ((3, 100, 120), "lp", 2.0), ((3, 100, 120), "cosine", 1.0),
+    ((3, 100, 120), "geodesic", 2.0),
+    ((2, 100, 100), "cosine", 2.0),    # square, ragged rows and columns
+    ((2, 7, 9), "lp", 2.0), ((2, 1, 5), "lp", 2.0),
+])
+def test_sinkhorn_points_register_route_matches_reference(cuda, shape, kind, p):
+    """K3's register route vs the plain version: val rtol 1e-3, f/g atol
+    1e-4; two calls give the same bits (fixed-order merges, no atomics)."""
+    x, y = _clouds(*shape, seed=16, dev=cuda)
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+    v1, f1, g1 = tp._fused_forward(x, y, kind, p, **kw, route="registers")
+    assert tp._fused_forward.last_route == "registers"
+    again = tp._fused_forward(x, y, kind, p, **kw, route="registers")
+    v2, f2, g2 = tp.sinkhorn_points_reference(x, y, kind, p, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(v1.cpu().numpy(), v2.cpu().numpy(), rtol=1e-3)
+    np.testing.assert_allclose(f1.cpu().numpy(), f2.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(g1.cpu().numpy(), g2.cpu().numpy(), atol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip((v1, f1, g1), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,p", [
+    ((3, 100, 130), "lp", 2.0), ((3, 100, 130), "cosine", 1.0),
+    ((3, 100, 130), "geodesic", 2.0),
+    ((128, 128, 128), "lp", 2.0),      # the general route at the train shape
+])
+def test_sinkhorn_points_general_route_matches_reference(cuda, shape, kind, p):
+    """K3's general route (tiles in shared memory or a global scratch) vs
+    the plain version: val rtol 1e-3, f/g atol 1e-4."""
+    x, y = _clouds(*shape, seed=17, dev=cuda)
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+    v1, f1, g1 = tp._fused_forward(x, y, kind, p, **kw, route="general")
+    assert tp._fused_forward.last_route == "general"
+    v2, f2, g2 = tp.sinkhorn_points_reference(x, y, kind, p, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(v1.cpu().numpy(), v2.cpu().numpy(), rtol=1e-3)
+    np.testing.assert_allclose(f1.cpu().numpy(), f2.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(g1.cpu().numpy(), g2.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_points_wrapper_picks_the_route(cuda):
+    """The wrapper's route is pick_route's, and a route the shape cannot
+    take raises."""
+    kw = dict(eps=5e-3, num_iters=2, num_scales=2)
+    for shape in ((128, 128, 128), (51, 128, 128), (3, 100, 130)):
+        x, y = _clouds(*shape, seed=18, dev=cuda)
+        tp._fused_forward(x, y, "lp", 2.0, **kw)
+        assert tp._fused_forward.last_route == tp.pick_route(*shape[1:])
+    x, y = _clouds(2, 100, 130, seed=18, dev=cuda)
+    with pytest.raises(ValueError):
+        tp._fused_forward(x, y, "lp", 2.0, **kw, route="registers")
+    with pytest.raises(ValueError):
+        tp._fused_forward(x, y, "lp", 2.0, **kw, route="shared")
+
+
+@pytest.mark.gpu
 def test_sinkhorn_points_single_scale(cuda):
     """num_scales=1 keeps the JAX package's behaviour: the only
     temperature is eps0, the plan is formed with eps."""
@@ -302,7 +367,8 @@ def test_emd2_points_picks_the_kernel_on_the_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(128, 128, 128), (1, 1200, 1200),
-                                   (2, 5000, 4099), (1, 7, 3)])
+                                   (2, 5000, 4099), (1, 7, 3),
+                                   (1, 40000, 8)])      # 40 slices of 1000 points
 def test_chamfer_kernel_matches_reference(cuda, shape):
     """K4 vs its plain version and the dense form: rtol 1e-5 (the same
     squared differences; fused multiply-adds and the order of the mean)."""
@@ -314,6 +380,59 @@ def test_chamfer_kernel_matches_reference(cuda, shape):
     np.testing.assert_allclose(got, float(chamfer(x, y)), rtol=1e-5)
     with pytest.raises(ValueError):
         chamfer_tiled(x.transpose(1, 2), y)
+
+
+@pytest.mark.gpu
+def test_chamfer_kernel_is_one_launch_with_the_same_bits(cuda):
+    """Three calls put exactly three kernels on the device's timeline, all
+    K4's (no memset), and every call gives the same bits (minima, then sums
+    in a fixed order; no atomics). Profiled in a fresh process: after the
+    earlier tests of this file (a CUDA graph capture among them) the
+    profiler recorded no kernels in this one."""
+    script = """
+import json, torch
+from shwd_torch.ops.chamfer import chamfer_tiled
+g = torch.Generator().manual_seed(19)
+x = torch.randn(1, 1200, 3, generator=g).cuda()
+y = torch.randn(1, 1200, 3, generator=g).cuda()
+first = chamfer_tiled(x, y)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    outs = [chamfer_tiled(x, y) for _ in range(3)]
+    torch.cuda.synchronize()
+names = [ev.name for ev in prof.events()
+         if ev.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(ev, "is_user_annotation", False) and "#" not in ev.name]
+print(json.dumps({"names": names, "same": all(torch.equal(first, o) for o in outs)}))
+"""
+    root = Path(__file__).resolve().parent.parent
+    run = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(got["names"]) == 3 and all("chamfer_kernel" in n for n in got["names"]), got
+    assert got["same"]
+
+
+@pytest.mark.gpu
+def test_chamfer_kernel_is_captured_in_a_cuda_graph(cuda):
+    """The cooperative launch records into a CUDA graph and replays: the
+    replay on new clouds equals a direct call on them, bit for bit."""
+    x1, y1 = _clouds(1, 1200, 1200, seed=20, dev=cuda)
+    x2, y2 = _clouds(1, 1200, 1200, seed=21, dev=cuda)
+    sx, sy = x1.clone(), y1.clone()
+    chamfer_tiled(sx, sy)                        # build and set up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chamfer_tiled(sx, sy)
+    sx.copy_(x2)
+    sy.copy_(y2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, chamfer_tiled(x2, y2))
+    np.testing.assert_allclose(float(out), float(chamfer(x2, y2)), rtol=1e-5)
 
 
 @pytest.mark.gpu

@@ -141,3 +141,32 @@ def test_unsupported_cost_raises():
         tf.sinkhorn_points(x, y, "lp", 1.0)
     with pytest.raises(ValueError):
         tf.sinkhorn_points_reference(x, y, "manhattan", 2.0)
+
+
+@pytest.mark.parametrize("n,m,want", [
+    (128, 128, "registers"),      # the trainer's train and eval batches
+    (100, 120, "registers"),
+    (7, 9, "registers"),
+    (1, 128, "registers"),
+    (128, 1, "registers"),
+    (100, 130, "general"),
+    (129, 100, "general"),
+    (129, 129, "general"),
+    (640, 640, "general"),        # the JAX gate's edge
+    (40, 600, "general"),
+])
+def test_pick_route(n, m, want):
+    """Tiles up to 128 x 128 take the register route, larger tiles the
+    general one."""
+    assert tf.pick_route(n, m) == want
+
+
+def test_cpu_wrapper_ignores_the_route():
+    """On CPU tensors the wrapper runs the plain version whatever route is
+    asked for, and counts no launch."""
+    x, y = (torch.from_numpy(a) for a in _clouds(2, 16, 20, seed=48))
+    before = tf.sinkhorn_points.launches
+    got = tf._fused_forward(x, y, "lp", 2.0, route="general", **KW)
+    want = tf.sinkhorn_points_reference(x, y, "lp", 2.0, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tf.sinkhorn_points.launches == before

@@ -10,7 +10,7 @@ per solver (``sinkhorn``, ``hybrid``) and for ``criterion="cd"``:
   - wall ms per step without the profiler (host clock, synchronised) and
     under it, device busy ms per step and the idle share;
   - device ms per step of K3 (the fused Sinkhorn kernel), K2 (the auction
-    kernel), K4 (the Chamfer kernels; a train step launches none) and
+    kernel), K4 (the Chamfer kernel; a train step launches none) and
     everything else; device launches per step; the top kernels by name.
 
     python3 tools/profile_torch_train.py [--warm 5] [--steps 10] [--trace DIR]
@@ -34,8 +34,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-GROUPS = {"k3": ("sinkhorn_points_kernel",), "k2": ("auction_kernel",),
-          "k4": ("chamfer_min", "chamfer_mean")}
+GROUPS = {"k3": ("sinkhorn_points",), "k2": ("auction_kernel",),
+          "k4": ("chamfer",)}
 
 
 def make_config(log_dir, solver, criterion, batch, points):
