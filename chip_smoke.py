@@ -41,11 +41,28 @@ Phases, each printing one JSON line:
      back, and over the sinkhorn run the train loss and the validation
      loss must fall and the validation rotation error must end on the
      plateau of about 40 deg that the JAX trainer reaches on this bank;
-  6. launches per call: one call of each wrapper under torch.profiler, the
+  6. evaluate: shwd_torch.train.evaluate.evaluate on the sinkhorn run's
+     best-rotation checkpoint, the test split, on the card by default;
+     both success curves non-decreasing to 1.0, five thresholds recounted
+     one full pass each equal to the one-pass curve, and the final state
+     giving the same per-sample errors, bit for bit, from memory and from
+     a checkpoint reloaded into a fresh state;
+  7. the criteria of the SSW family, each a Trainer.fit at full width with
+     the counts reset before and read after: pseudo_w_cos (two frozen
+     Residual flows, max, TrainConfig's default transport: K3 once per
+     flow per criterion call, checked on the count and on the profiled
+     step's timeline), max_ssw (mlp chart, 512 projections, one ascent
+     step, p = 1; its clouds must lie on S^2), 10 epochs each, whose
+     validation rotation error must end below epoch 1's; and w_cos on the
+     ssw solver (geodesic, p = 2, 100 projections) at N=M=1024, 3 epochs;
+     each with its ms per step, device launches and busy ms of one
+     profiled step, and peak memory;
+  8. launches per call: one call of each wrapper under torch.profiler, the
      CUDA kernels on the device's timeline counted and checked (1 for each
      of K1-K4);
 then the kernel table ({"kernels": [...]}; "launches" counts the wrapper's
-calls on the main path, "launches_per_call" is phase 6's count), the
+calls on the main path, "launches_pseudo" K3's on the pseudo_w_cos run,
+"launches_per_call" is phase 8's count), the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. Without CUDA, or without the
 shwd_torch package beside it, it exits non-zero before printing anything.
@@ -74,7 +91,9 @@ EPS_FINAL = 1e-7
 REG_B, REG_N = 128, 128
 REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
-REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4}
+REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
+              "ssw_1024": 3}
+SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # Of the seeds 0, 1, 2 and 1234 on an H100, the first three bring the model
 # within 40 epochs to the plateau the JAX trainer reaches on the same bank
 # (tests/compare_registration_curves.py): it has learnt to leave the source
@@ -111,17 +130,18 @@ def time_ms(fn, reps: int = 5, warmup: int = 1, ahead: bool = False) -> float:
     return statistics.median(times)
 
 
-def cuda_launches(fn) -> list[str]:
-    """The names of the CUDA kernels one call of ``fn`` launches, read from
-    the device's timeline (torch.profiler); plain copies and fills are left
-    out. ``fn`` has run before, so nothing is built inside."""
+def device_kernels(fn) -> list[tuple[str, float]]:
+    """(name, device ms) of each CUDA kernel one call of ``fn`` launches,
+    read from the device's timeline (torch.profiler); plain copies and
+    fills are left out. ``fn`` runs once before, so nothing is built
+    inside."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
+    return [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(ev, "is_user_annotation", False)
             and "#" not in ev.name
@@ -643,16 +663,19 @@ def phase_flow_cd(dev):
     return launches
 
 
-def registration_config(log_dir, solver="sinkhorn", criterion="w_cos"):
+def registration_config(log_dir, label, criterion="w_cos", solver="sinkhorn",
+                        points=REG_N, **overrides):
+    """The registration config (B=128 on the 256-shape composite bank,
+    noise 0.02, seed 0, full-width PCRNet, 3 Residual layers, the SHWD knobs
+    of TrainConfig) for the run ``label``; ``overrides`` replace fields."""
     from shwd_torch.data import DatasetConfig, TransformConfig
     from shwd_torch.losses import SHWDConfig, TransportConfig
     from shwd_torch.train import TrainConfig
-    return TrainConfig(
-        experiment=f"{criterion}_{solver}", log_dir=str(log_dir),
-        criterion=criterion, batch_size=REG_B, seed=REG_SEED,
-        num_epochs=REG_EPOCHS[solver if criterion == "w_cos" else criterion],
+    fields = dict(
+        experiment=label, log_dir=str(log_dir), criterion=criterion, batch_size=REG_B,
+        seed=REG_SEED, num_epochs=REG_EPOCHS[label],
         dataset=DatasetConfig(
-            source_point_num=REG_N, target_point_num=REG_N,
+            source_point_num=points, target_point_num=points,
             num_synthetic=REG_SHAPES, synthetic_kinds=("composite",), cache_dir="modelnet_cache",
             transform=TransformConfig(noise_sigma=0.02)),
         pcr_iteration_num=3,
@@ -660,82 +683,109 @@ def registration_config(log_dir, solver="sinkhorn", criterion="w_cos"):
             transport=TransportConfig(cost="lp", p=2.0, solver=solver, **REG_SINK),
             max_iter=1, lam=1.3e-5, phi_lr=9.2e-5),
         phi_num_flow_layer=3)
+    fields.update(overrides)
+    return TrainConfig(**fields)
 
 
-def phase_registration(dev):
-    """Slice 2: Trainer.fit at the registration config, three criteria."""
-    from shwd_torch.data import RegistrationDataset
+def kernel_wrappers():
     from shwd_torch.ops import auction as au
-    from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops import sinkhorn_fused as sp
+    from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops.chamfer import chamfer_tiled
+    return {"emd2_warmup": sk.emd2_warmup, "auction_assignment": au.auction_assignment,
+            "sinkhorn_points": sp.sinkhorn_points, "chamfer_tiled": chamfer_tiled}
+
+
+def run_registration(dev, cfg):
+    """``Trainer.fit`` on the card with the kernels' counts set to 0 just
+    before and read just after; every metric must be finite and every best
+    checkpoint must load back. Returns (summary, trainer, fit result,
+    dataset)."""
+    from shwd_torch.data import RegistrationDataset
     from shwd_torch.train import Trainer
     from shwd_torch.utils import load_checkpoint
-    wrappers = {"emd2_warmup": sk.emd2_warmup, "auction_assignment": au.auction_assignment,
-                "sinkhorn_points": sp.sinkhorn_points, "chamfer_tiled": chamfer_tiled}
-    runs = {}
-    with tempfile.TemporaryDirectory() as log_dir:
-        for label, solver, criterion in (("sinkhorn", "sinkhorn", "w_cos"),
-                                         ("hybrid", "hybrid", "w_cos"),
-                                         ("cd", "sinkhorn", "cd")):
-            cfg = registration_config(log_dir, solver, criterion)
-            trainer = Trainer(cfg)                    # the card by default
-            ds = RegistrationDataset(cfg.dataset, "train")
-            check(trainer.device.type == "cuda" and ds.sources.is_cuda,
-                  "registration: the trainer did not take the card")
-            for w in wrappers.values():
-                w.launches = 0
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            res = trainer.fit(ds, verbose=False)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k: w.launches for k, w in wrappers.items()}
-            hist = res["history"]
-            steps = sum(r["train_steps"] for r in hist)
-            n_val = int(len(ds) * cfg.dataset.val_split)
-            check(n_val == REG_VAL, f"registration: {n_val} validation shapes, "
-                  f"the kernel checks assume {REG_VAL}")
-            eval_batches = len(hist) * -(-n_val // cfg.batch_size)
-            step_ms = [r["train_seconds"] / r["train_steps"] * 1e3 for r in hist[1:]]
-            q = max(len(hist) // 4, 1)
-            losses = [r["train_loss"] for r in hist]
-            for r in hist:
-                check(all(np.isfinite(r[k]) for k in
-                          ("train_loss", "val_loss", "rot_error", "trans_error")),
-                      f"registration {label}: non-finite metric in {r}")
-            # every best-checkpoint family was written and loads back
-            models = trainer.cfg.log_dir + f"/{cfg.experiment}/models"
-            for snap in ("best_model_snap", "best_rot_error_snap",
-                         "best_trans_error_snap"):
-                fresh = trainer.init_state(torch.Generator(device=dev).manual_seed(1))
-                _, epoch = load_checkpoint(f"{models}/{snap}", fresh)
-                check(1 <= epoch <= cfg.num_epochs, f"{label}: {snap} epoch {epoch}")
-                check(all(bool(torch.isfinite(p).all())
-                          for p in fresh.model.parameters()),
-                      f"{label}: {snap} holds non-finite weights")
-            runs[label] = {
-                "epochs": len(hist), "train_steps": steps,
-                "eval_batches": eval_batches,
-                "ms_per_train_step": float(np.mean(step_ms)),
-                "ms_per_train_step_by_epoch": step_ms,
-                "clouds_per_second": cfg.batch_size / float(np.mean(step_ms)) * 1e3,
-                "ms_per_epoch": float(np.mean([r["seconds"] for r in hist[1:]])) * 1e3,
-                "train_loss_first": losses[0], "train_loss_last": losses[-1],
-                "train_loss_curve": losses,
-                "val_loss_first_quarter": float(np.mean([r["val_loss"] for r in hist[:q]])),
-                "val_loss_last_quarter": float(np.mean([r["val_loss"] for r in hist[-q:]])),
-                "val_rot_error_last_quarter":
-                    float(np.mean([r["rot_error"] for r in hist[-q:]])),
-                "val_rot_error_curve": [r["rot_error"] for r in hist],
-                "val_rot_error_first": hist[0]["rot_error"],
-                "val_rot_error_last": hist[-1]["rot_error"],
-                "val_trans_error_first": hist[0]["trans_error"],
-                "val_trans_error_last": hist[-1]["trans_error"],
-                "best": {k: v for k, v in res["best"].items() if np.isfinite(v)},
-                "wall_seconds": wall,
-                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                "launches": launches}
+    label = cfg.experiment
+    trainer = Trainer(cfg)                    # the card by default
+    ds = RegistrationDataset(cfg.dataset, "train")
+    check(trainer.device.type == "cuda" and ds.sources.is_cuda,
+          f"registration {label}: the trainer did not take the card")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = trainer.fit(ds, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    hist = res["history"]
+    steps = sum(r["train_steps"] for r in hist)
+    n_val = int(len(ds) * cfg.dataset.val_split)
+    check(n_val == REG_VAL, f"registration {label}: {n_val} validation shapes, "
+          f"the kernel checks assume {REG_VAL}")
+    eval_batches = len(hist) * -(-n_val // cfg.batch_size)
+    step_ms = [r["train_seconds"] / r["train_steps"] * 1e3 for r in hist[1:]]
+    q = max(len(hist) // 4, 1)
+    losses = [r["train_loss"] for r in hist]
+    for r in hist:
+        check(all(np.isfinite(r[k]) for k in
+                  ("train_loss", "val_loss", "rot_error", "trans_error")),
+              f"registration {label}: non-finite metric in {r}")
+    models = f"{cfg.log_dir}/{cfg.experiment}/models"
+    for snap in ("best_model_snap", "best_rot_error_snap", "best_trans_error_snap"):
+        fresh = trainer.init_state(torch.Generator(device=dev).manual_seed(1))
+        _, epoch = load_checkpoint(f"{models}/{snap}", fresh)
+        check(1 <= epoch <= cfg.num_epochs, f"{label}: {snap} epoch {epoch}")
+        check(all(bool(torch.isfinite(p).all()) for p in fresh.model.parameters()),
+              f"{label}: {snap} holds non-finite weights")
+    summary = {
+        "criterion": cfg.criterion, "solver": cfg.shwd.transport.solver,
+        "points": cfg.dataset.source_point_num,
+        "epochs": len(hist), "train_steps": steps, "eval_batches": eval_batches,
+        "ms_per_train_step": float(np.mean(step_ms)),
+        "ms_per_train_step_by_epoch": step_ms,
+        "clouds_per_second": cfg.batch_size / float(np.mean(step_ms)) * 1e3,
+        "ms_per_epoch": float(np.mean([r["seconds"] for r in hist[1:]])) * 1e3,
+        "train_loss_first": losses[0], "train_loss_last": losses[-1],
+        "train_loss_curve": losses,
+        "val_loss_first_quarter": float(np.mean([r["val_loss"] for r in hist[:q]])),
+        "val_loss_last_quarter": float(np.mean([r["val_loss"] for r in hist[-q:]])),
+        "val_rot_error_last_quarter": float(np.mean([r["rot_error"] for r in hist[-q:]])),
+        "val_rot_error_curve": [r["rot_error"] for r in hist],
+        "val_rot_error_first": hist[0]["rot_error"],
+        "val_rot_error_last": hist[-1]["rot_error"],
+        "val_trans_error_first": hist[0]["trans_error"],
+        "val_trans_error_last": hist[-1]["trans_error"],
+        "best": {k: v for k, v in res["best"].items() if np.isfinite(v)},
+        "wall_seconds": wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "launches": launches}
+    return summary, trainer, res, ds
+
+
+def profile_train_step(trainer, state, ds):
+    """One more train step under torch.profiler: the CUDA kernels it puts
+    on the card, K3's among them, and their device time."""
+    gen = torch.Generator(device=trainer.device).manual_seed(7)
+    batch = next(ds.batches(gen, np.arange(REG_B), REG_B, shuffle=False))
+    kernels = device_kernels(lambda: trainer._train_step(state, batch))
+    k3 = [ms for name, ms in kernels if "sinkhorn_points" in name]
+    return {"device_launches_per_step": len(kernels),
+            "device_busy_ms_per_step": sum(ms for _, ms in kernels),
+            "k3_launches_per_step": len(k3), "k3_ms_per_step": sum(k3)}
+
+
+def phase_registration(dev, log_dir):
+    """Slice 2: Trainer.fit at the registration config, three criteria.
+    Returns the sinkhorn run's (config, fit result) for phase evaluate."""
+    runs, sink_run = {}, None
+    for label, solver, criterion in (("sinkhorn", "sinkhorn", "w_cos"),
+                                     ("hybrid", "hybrid", "w_cos"),
+                                     ("cd", "sinkhorn", "cd")):
+        cfg = registration_config(log_dir, label, criterion, solver)
+        runs[label], _, res, _ = run_registration(dev, cfg)
+        if label == "sinkhorn":
+            sink_run = (cfg, res)
     emit({"phase": "registration", "batch": REG_B, "points": REG_N, "runs": runs})
     sink, hyb, cd = runs["sinkhorn"], runs["hybrid"], runs["cd"]
     want = 2 * sink["train_steps"] + sink["eval_batches"]
@@ -760,8 +810,140 @@ def phase_registration(dev):
           f" deg over the last quarter, above the {REG_PLATEAU_DEG} deg plateau")
     check(sink["val_trans_error_last"] < sink["val_trans_error_first"],
           "registration: val translation error did not fall")
-    return {"sinkhorn_points": sink["launches"]["sinkhorn_points"],
-            "auction_assignment": hyb["launches"]["auction_assignment"]}
+    return ({"sinkhorn_points": sink["launches"]["sinkhorn_points"],
+             "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run)
+
+
+def phase_evaluate(dev, cfg, res, log_dir):
+    """train/evaluate.py on the sinkhorn run's best-rotation checkpoint,
+    the test split: on the card by default; both curves non-decreasing to
+    1.0; five thresholds recounted one full pass each (the original
+    harness's definition) equal the one-pass curve; the final state gives
+    the same per-sample errors, bit for bit, from memory and from a
+    checkpoint reloaded into a fresh state."""
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.train import Trainer
+    from shwd_torch.train.evaluate import errors_step, evaluate
+    from shwd_torch.utils import load_checkpoint, save_checkpoint
+    models = f"{log_dir}/{cfg.experiment}/models"
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    t0 = time.perf_counter()
+    out = evaluate(cfg, checkpoint=f"{models}/best_rot_error_snap",
+                   save_clouds_to=f"{log_dir}/evaluate")
+    secs = time.perf_counter() - t0
+    check(torch.cuda.memory_stats(dev)["allocation.all.allocated"] > allocs,
+          "evaluate: nothing ran on the card")
+    for name, curve in (("rotation", out.rot_success_ratio),
+                        ("translation", out.trans_success_ratio)):
+        check(bool((np.diff(curve) >= 0).all()) and curve[-1] == 1.0,
+              f"evaluate: the {name} curve is not non-decreasing to 1.0")
+    # the original harness's definition: a full pass over the split per
+    # threshold
+    state = res["state"]
+    ds = RegistrationDataset(cfg.dataset, "test")
+    best = Trainer(cfg).init_state(torch.Generator(device=dev).manual_seed(0))
+    load_checkpoint(f"{models}/best_rot_error_snap", best)
+    rot_idx, trans_idx = (0, 10, 30, 90, 180), (1, 5, 10, 30, 100)
+    recount = {}
+    for which, idx, thresholds, curve in (
+            (0, rot_idx, out.rot_thresholds, out.rot_success_ratio),
+            (1, trans_idx, out.trans_thresholds, out.trans_success_ratio)):
+        for i in idx:
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed + 999)
+            hits = total = 0
+            for batch in ds.batches(gen, np.arange(len(ds)), cfg.batch_size,
+                                    shuffle=False, drop_remainder=False):
+                err = errors_step(best.model, batch, cfg.pcr_iteration_num)[which]
+                hits += int((err.double() <= float(thresholds[i])).sum())
+                total += err.shape[0]
+            recount[f"{'rot' if which == 0 else 'trans'}_{thresholds[i]:g}"] = hits / total
+            check(hits / total == curve[i],
+                  f"evaluate: threshold {thresholds[i]}: one pass {curve[i]}, "
+                  f"recount {hits / total}")
+    mem = evaluate(cfg, state=state)
+    save_checkpoint(f"{models}/final_state", state, cfg.num_epochs)
+    disk = evaluate(cfg, checkpoint=f"{models}/final_state")
+    check(np.array_equal(mem.per_sample_rot, disk.per_sample_rot)
+          and np.array_equal(mem.per_sample_trans, disk.per_sample_trans),
+          "evaluate: the reloaded checkpoint gives other per-sample errors")
+    last = res["history"][-1]
+    emit({"phase": "evaluate", "checkpoint": "best_rot_error_snap", "split": "test",
+          "samples": int(out.per_sample_rot.shape[0]), "seconds": secs,
+          "mean_rot_error": out.mean_rot_error, "mean_trans_error": out.mean_trans_error,
+          "trainer_last_val_rot_error": last["rot_error"],
+          "trainer_last_val_trans_error": last["trans_error"],
+          "final_state_mean_rot_error": mem.mean_rot_error,
+          "rot_success_at": {f"{out.rot_thresholds[i]:g}": out.rot_success_ratio[i]
+                             for i in rot_idx},
+          "trans_success_at": {f"{out.trans_thresholds[i]:g}": out.trans_success_ratio[i]
+                               for i in trans_idx},
+          "recount": recount, "reload_bitwise_equal": True})
+
+
+def check_falling_rotation(label, run):
+    check(run["val_rot_error_last"] < run["val_rot_error_first"],
+          f"registration {label}: val rotation error did not fall "
+          f"({run['val_rot_error_first']} -> {run['val_rot_error_last']})")
+
+
+def phase_registration_pseudo(dev, log_dir):
+    """pseudo_w_cos (two frozen Residual flows, max) on TrainConfig's
+    default transport: K3 once per ensemble member per criterion call."""
+    cfg = registration_config(log_dir, "pseudo", "pseudo_w_cos", pseudo_phi_num=2,
+                              pseudo_combine="max")
+    run, trainer, res, ds = run_registration(dev, cfg)
+    run.update(profile_train_step(trainer, res["state"], ds))
+    emit({"phase": "registration_pseudo", "batch": REG_B, "points": REG_N, "run": run})
+    want = 2 * run["train_steps"] + 2 * run["eval_batches"]
+    check(run["launches"]["sinkhorn_points"] == want,
+          f"registration_pseudo: K3 launched {run['launches']['sinkhorn_points']} "
+          f"times, expected {want}")
+    check(run["k3_launches_per_step"] == 2,
+          f"registration_pseudo: {run['k3_launches_per_step']} K3 kernels in a step")
+    check_falling_rotation("pseudo", run)
+    return run["launches"]["sinkhorn_points"]
+
+
+def phase_registration_max_ssw(dev, log_dir):
+    """max_ssw with the mlp chart and variant P's knobs (512 projections,
+    one ascent step, p = 1); the chart's clouds must lie on S^2."""
+    from shwd_torch.losses import MaxSSWConfig
+    from shwd_torch.train.trainer import _mean_subtract
+    cfg = registration_config(log_dir, "max_ssw", "max_ssw", max_ssw_chart="mlp",
+                              max_ssw=MaxSSWConfig(num_projections=512, max_iter=1,
+                                                   phi_lr=9.213e-5, p=1.0))
+    run, trainer, res, ds = run_registration(dev, cfg)
+    run.update(profile_train_step(trainer, res["state"], ds))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = next(ds.batches(gen, np.arange(REG_B), REG_B, shuffle=False))
+    source, target, _ = _mean_subtract(batch)
+    with torch.no_grad():
+        (_, sx, sy), _ = trainer.crit_apply(res["state"].crit_state, target, source, False)
+    off = max(float((torch.linalg.vector_norm(s, dim=-1) - 1).abs().max()) for s in (sx, sy))
+    run["max_abs_norm_minus_1"] = off
+    emit({"phase": "registration_max_ssw", "batch": REG_B, "points": REG_N, "run": run})
+    check(off <= 1e-5, f"registration_max_ssw: chart output off S^2 by {off}")
+    check(not any(run["launches"].values()),
+          f"registration_max_ssw: launches {run['launches']}")
+    check_falling_rotation("max_ssw", run)
+
+
+def phase_registration_ssw_1024(dev, log_dir):
+    """w_cos on the ssw solver (geodesic, p = 2, 100 projections) at
+    N = M = 1024: the p = 2 correlation branch of circle_ot on 12 800
+    problems per solve."""
+    from shwd_torch.losses import SHWDConfig, TransportConfig
+    cfg = registration_config(
+        log_dir, "ssw_1024", points=SSW_N,
+        shwd=SHWDConfig(transport=TransportConfig(cost="geodesic", p=2.0, solver="ssw",
+                                                  num_projections=100),
+                        max_iter=1, lam=1.311e-5, phi_lr=9.213e-5,
+                        phi_weight_decay=1.410e-8))
+    run, trainer, res, ds = run_registration(dev, cfg)
+    run.update(profile_train_step(trainer, res["state"], ds))
+    emit({"phase": "registration_ssw_1024", "batch": REG_B, "points": SSW_N, "run": run})
+    check(not any(run["launches"].values()),
+          f"registration_ssw_1024: launches {run['launches']}")
 
 
 def phase_launches_per_call(dev, kernels):
@@ -792,7 +974,7 @@ def phase_launches_per_call(dev, kernels):
     seen = {}
     for k in kernels:
         want, fn = calls[k["name"]]
-        seen[k["name"]] = names = cuda_launches(fn)
+        seen[k["name"]] = names = [n for n, _ in device_kernels(fn)]
         k["launches_per_call"] = len(names)
         check(len(names) == want, f"{k['name']}: a call launched {len(names)} "
               f"CUDA kernels, expected {want}: {names}")
@@ -819,9 +1001,15 @@ def main() -> int:
     check_auction_seeded(k2, captured)
     del captured
     k4["launches"] = phase_flow_cd(dev)
-    reg_launches = phase_registration(dev)
-    k2["launches_registration"] = reg_launches["auction_assignment"]
-    k3["launches"] = reg_launches["sinkhorn_points"]
+    with tempfile.TemporaryDirectory() as log_dir:
+        reg_launches, (sink_cfg, sink_res) = phase_registration(dev, log_dir)
+        k2["launches_registration"] = reg_launches["auction_assignment"]
+        k3["launches"] = reg_launches["sinkhorn_points"]
+        phase_evaluate(dev, sink_cfg, sink_res, log_dir)
+        del sink_res
+        k3["launches_pseudo"] = phase_registration_pseudo(dev, log_dir)
+        phase_registration_max_ssw(dev, log_dir)
+        phase_registration_ssw_1024(dev, log_dir)
     phase_launches_per_call(dev, [k1, k2, k3, k4])
     emit({"kernels": [k1, k2, k3, k4]})
     print(smi, flush=True)

@@ -47,7 +47,8 @@ class SHWDConfig:
 @dataclasses.dataclass
 class SHWDState:
     """What the criterion carries across calls. ``generator`` draws a
-    fresh phi for ``refresh``."""
+    fresh phi for ``refresh`` and the frames of every ``ssw`` solve (the
+    JAX package's ``key``)."""
     phi: FlowChain
     opt: torch.optim.Adam
     lam: float
@@ -131,13 +132,13 @@ class SHWDLoss:
         s = phi(torch.cat([x, y], dim=-2))
         return s[..., :n, :], s[..., n:, :]
 
-    def _inner_objective(self, phi, x, y, lam, warm):
+    def _inner_objective(self, phi, x, y, lam, warm, generator):
         """phi's ascent objective lam * reg - W, and the new warm state."""
         sx, sy = self._flow_pair(phi, x, y)
         if self._warm_hybrid:
             w, warm = self._transport_warm(sx, sy, warm)
         else:
-            w = self.transport(sx, sy)
+            w = self.transport(sx, sy, generator)
         reg = lam * (sphere_regularizer(sx) + sphere_regularizer(sy))
         return reg - w, warm
 
@@ -148,7 +149,8 @@ class SHWDLoss:
         warm = None
         for _ in range(cfg.max_iter):
             state.opt.zero_grad(set_to_none=True)
-            obj, warm = self._inner_objective(state.phi, xd, yd, state.lam, warm)
+            obj, warm = self._inner_objective(state.phi, xd, yd, state.lam, warm,
+                                              state.generator)
             obj.backward()
             state.opt.step()
             if cfg.power_iter_per_step > 0:
@@ -176,7 +178,7 @@ class SHWDLoss:
         if self._warm_hybrid:
             w, _ = self._transport_warm(sx, sy, warm)
         else:
-            w = self.transport(sx, sy)
+            w = self.transport(sx, sy, state.generator)
         return (w, sx, sy), state
 
     def add_strike(self, state: SHWDState) -> SHWDState:

@@ -1,6 +1,6 @@
 """Batched transport distances: cost matrix, OT solve per item, 1/p root.
 
-Counterpart of ``shwd_tpu/losses/transport.py``. Ported solvers:
+Counterpart of ``shwd_tpu/losses/transport.py``, all seven solvers:
 
 - 'sinkhorn': eps-scaled log-Sinkhorn from the raw clouds; on the card the
   fused cost-plus-Sinkhorn kernel (``ops.sinkhorn_fused.emd2_points``);
@@ -8,7 +8,11 @@ Counterpart of ``shwd_tpu/losses/transport.py``. Ported solvers:
 - 'hybrid': annealed-Sinkhorn duals warm-start the auction, which returns
   the exact permutation (the flow's exact-EMD path);
 - 'auction': the auction from cold prices;
-- 'sinkhorn_fast': single-temperature log-Sinkhorn.
+- 'sinkhorn_fast': single-temperature log-Sinkhorn;
+- 'ssw': spherical sliced-Wasserstein (no cost matrix; ``cost`` is
+  ignored), on frames drawn from the call's generator;
+- 'exact': the host network simplex / assignment with the plan as the
+  gradient (``ops.emd_exact.emd2_exact_torch``).
 """
 
 from __future__ import annotations
@@ -20,23 +24,20 @@ import torch
 
 from ..ops.auction import auction_emd2, hybrid_emd2
 from ..ops.costs import cost_matrix as build_cost
+from ..ops.emd_exact import emd2_exact_torch
 from ..ops.sinkhorn import sinkhorn_divergence_cost, sinkhorn_log
 from ..ops.sinkhorn_fused import emd2_points
+from ..ops.spherical import sliced_cost_sphere, stiefel_frames
 
-# solvers of the JAX package that a later slice brings
-_LATER = {
-    "exact": "a later slice (the differentiable exact-EMD bridge)",
-    "ssw": "a later slice (the SSW family)",
-}
+SOLVERS = ("sinkhorn", "sinkhorn_div", "sinkhorn_fast", "ssw", "exact",
+           "auction", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
     cost: str = "lp"            # 'lp' | 'cosine' | 'geodesic'
     p: float = 2.0
-    # 'sinkhorn' | 'sinkhorn_div' | 'sinkhorn_fast' | 'auction' | 'hybrid'
-    # here; see _LATER for the rest
-    solver: str = "sinkhorn"
+    solver: str = "sinkhorn"    # one of SOLVERS
     eps: float = 5e-3
     num_iters: int = 50
     num_scales: int = 4
@@ -53,19 +54,31 @@ def reduce_batch(v: torch.Tensor, how: str) -> torch.Tensor:
 
 
 def make_transport(cfg: TransportConfig) -> Callable:
-    """Returns w(x, y) -> scalar (or (B,) if reduce='none').
+    """Returns w(x, y, generator=None, frames=None) -> scalar (or (B,) if
+    reduce='none').
 
     x, y: (B, N, 3) / (B, M, 3) or unbatched (N, 3). Per item
-    W = (OT cost)^(1/p), then the batch reduction.
+    W = (OT cost)^(1/p), then the batch reduction. Only 'ssw' reads
+    ``generator`` (its frames are drawn from it; None means a generator
+    seeded 0, the same frames on every call, as the JAX package's
+    ``key=None``) and ``frames`` (given frames, (L, 3, 2), replace the
+    draw).
     """
-    if cfg.solver in _LATER:
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} is ported in {_LATER[cfg.solver]}")
-    if cfg.solver not in ("sinkhorn", "sinkhorn_div", "hybrid", "auction",
-                          "sinkhorn_fast"):
+    if cfg.solver not in SOLVERS:
         raise ValueError(f"unknown solver {cfg.solver!r}")
 
-    def w(x, y):
+    if cfg.solver == "ssw":
+        def w(x, y, generator=None, frames=None):
+            if frames is None:
+                if generator is None:
+                    generator = torch.Generator(device=x.device).manual_seed(0)
+                frames = stiefel_frames(generator, cfg.num_projections,
+                                        x.shape[-1], device=x.device)
+            val = sliced_cost_sphere(x, y, frames, p=cfg.p) ** (1.0 / cfg.p)
+            return reduce_batch(val, cfg.reduce) if x.ndim == 3 else val
+        return w
+
+    def w(x, y, generator=None, frames=None):
         batched = x.ndim == 3
         if not batched:
             x, y = x[None], y[None]
@@ -85,6 +98,8 @@ def make_transport(cfg: TransportConfig) -> Callable:
             c = build_cost(x, y, cfg.cost, cfg.p)
             if cfg.solver == "sinkhorn_fast":
                 val, _, _ = sinkhorn_log(c, eps=cfg.eps, num_iters=cfg.num_iters)
+            elif cfg.solver == "exact":
+                val = emd2_exact_torch(c)
             elif cfg.solver == "auction":
                 val = auction_emd2(c, 1e-7)
             else:

@@ -15,6 +15,13 @@ import torch
 from torch import nn
 
 
+def uniform_init(shape, bound: float,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """U(-bound, bound) of ``shape``, drawn from ``generator`` on its device."""
+    dev = generator.device if generator is not None else None
+    return (torch.rand(shape, generator=generator, device=dev) * 2 - 1) * bound
+
+
 class PointLinear(nn.Module):
     """y = x @ w^T + b with ``w`` (out, in); init U(+-1/sqrt(fan_in)) for
     weight and bias, drawn from ``generator`` (on the target device)."""
@@ -23,11 +30,8 @@ class PointLinear(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         bound = 1.0 / math.sqrt(n_in)
-        dev = generator.device if generator is not None else None
-        self.w = nn.Parameter(
-            (torch.rand(n_out, n_in, generator=generator, device=dev) * 2 - 1) * bound)
-        self.b = nn.Parameter(
-            (torch.rand(n_out, generator=generator, device=dev) * 2 - 1) * bound)
+        self.w = nn.Parameter(uniform_init((n_out, n_in), bound, generator))
+        self.b = nn.Parameter(uniform_init((n_out,), bound, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.w.T + self.b

@@ -1,4 +1,5 @@
-"""Transport ops: costs, samplers, Sinkhorn, the auction and the exact oracle.
+"""Transport ops: costs, samplers, Sinkhorn, the auction, the exact oracle,
+1-D and spherical sliced OT.
 
 The CUDA kernels sit behind ``emd2_warmup`` (``sinkhorn_kernels``),
 ``auction_assignment`` (``auction``), ``sinkhorn_points``
@@ -19,4 +20,9 @@ from .sinkhorn_kernels import (emd2_warmup, emd2_warmup_reference,  # noqa: F401
 from .auction import (auction_assignment, auction_assignment_reference,  # noqa: F401
                       auction_emd2, hybrid_assignment_warm, hybrid_emd2,
                       hybrid_warm_sentinel)
-from .emd_exact import emd2_exact, emd2_exact_batch, w2_exact  # noqa: F401
+from .emd_exact import (emd2_exact, emd2_exact_batch, emd2_exact_torch,  # noqa: F401
+                        w2_exact)
+from .ot1d import (batched_searchsorted, circle_ot, emd1d,  # noqa: F401
+                   emd1d_circle, emd1d_general)
+from .spherical import (project_to_circle, sliced_cost_sphere,  # noqa: F401
+                        sliced_wasserstein_sphere, stiefel_frames)

@@ -1,11 +1,13 @@
 """Exact EMD oracle on the host: scipy assignment or the C++ network simplex.
 
 Counterpart of ``shwd_tpu/ops/emd_exact.py`` (``emd2_exact``,
-``emd2_exact_batch``, ``w2_exact``). An evaluation tool: the flow's exact
-W2 eval uses the scipy ``linear_sum_assignment`` fast path (uniform
-marginals, n == m); other shapes go through the port's own copy of the
-network simplex (``runtime/emd/network_simplex.cpp``), built with ``g++``
-at first use into ``_build/`` and bound with ctypes.
+``emd2_exact_batch``, ``w2_exact``, and ``emd2_exact_torch`` for the JAX
+package's ``emd2_exact_jax``). The flow's exact W2 eval uses the scipy
+``linear_sum_assignment`` fast path (uniform marginals, n == m); other
+shapes go through the port's own copy of the network simplex
+(``runtime/emd/network_simplex.cpp``), built with ``g++`` at first use
+into ``_build/`` and bound with ctypes. ``emd2_exact_torch`` is the
+transport's ``exact`` solver: the solve runs on the host by design.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+import torch
 
 from .. import _kernels
 
@@ -82,3 +85,33 @@ def w2_exact(x: np.ndarray, y: np.ndarray) -> float:
     y = np.asarray(y, np.float64)
     c = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
     return float(np.sqrt(max(emd2_exact(c), 0.0)))
+
+
+class _EMD2Exact(torch.autograd.Function):
+    """Exact <P*, C> per batch item on the host; the gradient with
+    respect to the cost is the optimal plan."""
+
+    @staticmethod
+    def forward(ctx, cost):
+        host = cost.detach().to("cpu", torch.float64).numpy()
+        vals = np.zeros(host.shape[0], np.float32)
+        plans = np.zeros(host.shape, np.float32)
+        for i, c in enumerate(host):
+            vals[i], plans[i] = emd2_exact(c, return_plan=True)
+        ctx.save_for_backward(torch.from_numpy(plans).to(cost.device))
+        return torch.from_numpy(vals).to(cost.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (plans,) = ctx.saved_tensors
+        return g[:, None, None] * plans
+
+
+def emd2_exact_torch(cost: torch.Tensor) -> torch.Tensor:
+    """Exact <P*, C> for each (n, m) cost of a (B, n, m) batch, (B,) f32,
+    differentiable with respect to the cost (the gradient is the plan, by
+    the envelope theorem). The cost is copied to the host, solved there
+    (scipy's assignment for uniform n == m, else the network simplex) and
+    the values and plans are copied back to the cost's device: the
+    solver's semantics, as ``pure_callback`` is in the JAX package."""
+    return _EMD2Exact.apply(cost)

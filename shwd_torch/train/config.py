@@ -15,21 +15,8 @@ from typing import Any, Optional
 from ..data.dataset import DatasetConfig
 from ..data.transforms import TransformConfig
 from ..losses.shwd import SHWDConfig
+from ..losses.ssw_loss import MaxSSWConfig
 from ..losses.transport import TransportConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class MaxSSWConfig:
-    """Knobs of the max_ssw criterion. The criterion itself is not ported
-    yet; the fields are kept so configuration files round-trip."""
-    num_projections: int = 100
-    p: float = 2.0
-    max_iter: int = 10
-    phi_lr: float = 0.01
-    phi_b1: float = 0.5
-    phi_b2: float = 0.999
-    minibatch: int = 0
-    power_iter_per_step: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +25,8 @@ class TrainConfig:
     experiment: str = "experiment"
     log_dir: str = "log"
 
-    # criterion: 'w_cos' (flagship SHWD) | 'cd' (chamfer) | 'w1_cos' (p=1)
-    #            | 'sinkhorn'; 'pseudo_w_cos' and 'max_ssw' are not ported yet
+    # criterion: 'w_cos' (flagship SHWD) | 'cd' (chamfer) | 'pseudo_w_cos'
+    #            | 'w1_cos' (p=1) | 'sinkhorn' | 'max_ssw'
     criterion: str = "w_cos"
 
     # data
@@ -78,7 +65,7 @@ class TrainConfig:
     pseudo_phi_num: int = 2
     pseudo_combine: str = "max"
 
-    # max_ssw criterion (not ported yet; kept for file compatibility)
+    # max_ssw criterion; the chart is 'mlp' | 'encoder_flow'
     max_ssw: MaxSSWConfig = MaxSSWConfig(
         num_projections=100, max_iter=1, phi_lr=9.213233310357477e-05)
     max_ssw_chart: str = "mlp"

@@ -1,4 +1,5 @@
-"""Registration trainers: W_COS (flagship), W1_COS, CD, Sinkhorn.
+"""Registration trainers: W_COS (flagship), CD, Pseudo_W_COS, W1_COS,
+Sinkhorn, max-SSW.
 
 Counterpart of ``shwd_tpu/train/trainer.py``: per epoch a train pass and a
 validation pass, three best-checkpoint families (val loss / rotation error /
@@ -31,8 +32,9 @@ import torch
 from ..data.dataset import RegistrationDataset
 from ..data.transforms import RegistrationBatch
 from ..device import resolve_device
-from ..flows import make_flow
-from ..losses import SHWDLoss, chamfer_criterion, make_sinkhorn_criterion
+from ..flows import EncoderFlowChart, SphereChartMLP, make_flow
+from ..losses import (MaxSSWLoss, PseudoSHWDConfig, PseudoSHWDLoss, SHWDLoss,
+                      chamfer_criterion, make_sinkhorn_criterion)
 from ..models import PCRNet
 from ..ops.quaternion import rotation_error_deg, translation_error
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_payload
@@ -40,17 +42,13 @@ from ..utils.logging import RunLogger
 from ..utils.optim import torch_adam
 from .config import TrainConfig
 
-_LATER = {
-    "pseudo_w_cos": "Queue 1 item 6 (the Pseudo-SHWD criterion)",
-    "max_ssw": "Queue 1 item 4 (the SSW family)",
-}
-
 
 @dataclasses.dataclass
 class TrainState:
     model: PCRNet
     opt: torch.optim.Adam
-    crit_state: Any             # SHWDState, or None for stateless criteria
+    crit_state: Any             # SHWDState, PseudoSHWDState, MaxSSWState,
+                                # or None for stateless criteria
     epoch: int = 0
 
 
@@ -78,9 +76,17 @@ def build_criterion(cfg: TrainConfig):
             lambda g: make_flow(cfg.flow_name, cfg.phi_num_flow_layer, generator=g),
             shwd_cfg)
         return crit.init, crit.apply
-    if name in _LATER:
-        raise NotImplementedError(
-            f"criterion {name!r} is not ported yet: ROADMAP {_LATER[name]}")
+    if name == "pseudo_w_cos":
+        crit = PseudoSHWDLoss(
+            lambda g: make_flow(cfg.flow_name, cfg.phi_num_flow_layer, generator=g),
+            PseudoSHWDConfig(transport=cfg.shwd.transport, phi_num=cfg.pseudo_phi_num,
+                             combine=cfg.pseudo_combine))
+        return crit.init, crit.apply
+    if name == "max_ssw":
+        chart = (EncoderFlowChart if cfg.max_ssw_chart == "encoder_flow"
+                 else SphereChartMLP)
+        crit = MaxSSWLoss(lambda g: chart(generator=g), cfg.max_ssw)
+        return crit.init, crit.apply
     if name == "cd":
         def apply(state, x, y, train=True):
             return chamfer_criterion(x, y), state

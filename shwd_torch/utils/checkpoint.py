@@ -1,8 +1,13 @@
 """Checkpointing: the whole train state in one file, written atomically.
 
 Counterpart of ``shwd_tpu/utils/checkpoint.py``. A checkpoint holds the
-model, its Adam state, and the criterion state (phi with its spectral-norm
-buffers, phi's Adam state, lam, strikes) plus the epoch. The port's modules
+model, its Adam state, the criterion state and the epoch. A criterion
+state is a dataclass (``SHWDState``, ``PseudoSHWDState``, ``MaxSSWState``);
+each field is saved by its kind: a module (phi, the pseudo flows, the
+chart, with their spectral-norm buffers) and an optimizer by their state
+dicts, a ``torch.Generator`` by its state (so a resumed run draws the
+frames and refreshes an uninterrupted one would), numbers as they are.
+The JAX package's states carry their key the same way. The port's modules
 and optimizers are updated in place, so a "best so far" snapshot must be a
 copy: ``state_payload`` clones every tensor on its device, and the trainer
 writes such payloads later. Files are written to a temporary name and
@@ -12,12 +17,14 @@ half a checkpoint.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
 from typing import Any, Tuple
 
 import torch
+from torch import nn
 
 
 def _clone(obj):
@@ -40,19 +47,42 @@ def _to_cpu(obj):
     return obj
 
 
+def _crit_payload(crit: Any) -> dict:
+    out = {"kind": type(crit).__name__}
+    for f in dataclasses.fields(crit):
+        v = getattr(crit, f.name)
+        if isinstance(v, (nn.Module, torch.optim.Optimizer)):
+            v = _clone(v.state_dict())
+        elif isinstance(v, torch.Generator):
+            v = v.get_state()
+        out[f.name] = v
+    return out
+
+
+def _load_crit(crit: Any, saved: dict) -> None:
+    kind = saved.get("kind", "SHWDState")   # files written before the kind
+    if kind != type(crit).__name__:
+        raise ValueError(f"checkpoint holds a {kind}, the state is a "
+                         f"{type(crit).__name__} (another criterion?)")
+    for f in dataclasses.fields(crit):
+        if f.name not in saved:     # e.g. no generator in an older file
+            continue
+        v, cur = saved[f.name], getattr(crit, f.name)
+        if isinstance(cur, (nn.Module, torch.optim.Optimizer)):
+            cur.load_state_dict(v)
+        elif isinstance(cur, torch.Generator):
+            cur.set_state(v)
+        elif not isinstance(v, torch.Tensor):   # lam, strikes
+            setattr(crit, f.name, v)
+
+
 def state_payload(state: Any) -> dict:
     """A copy of everything ``state`` (a ``TrainState``) carries, as plain
     dictionaries of cloned tensors on their device."""
-    payload = {"model": _clone(state.model.state_dict()),
-               "opt": _clone(state.opt.state_dict()),
-               "crit": None}
     crit = state.crit_state
-    if crit is not None:
-        payload["crit"] = {"phi": _clone(crit.phi.state_dict()),
-                           "opt": _clone(crit.opt.state_dict()),
-                           "lam": float(crit.lam),
-                           "strikes": int(crit.strikes)}
-    return payload
+    return {"model": _clone(state.model.state_dict()),
+            "opt": _clone(state.opt.state_dict()),
+            "crit": None if crit is None else _crit_payload(crit)}
 
 
 def _atomic_write(path: Path, write) -> None:
@@ -90,9 +120,6 @@ def load_checkpoint(path: str | Path, state: Any) -> Tuple[Any, int]:
         raise ValueError("checkpoint and state disagree on the criterion "
                          "state (another criterion?)")
     if crit is not None:
-        crit.phi.load_state_dict(payload["crit"]["phi"])
-        crit.opt.load_state_dict(payload["crit"]["opt"])
-        crit.lam = payload["crit"]["lam"]
-        crit.strikes = payload["crit"]["strikes"]
+        _load_crit(crit, payload["crit"])
     state.epoch = int(payload["epoch"])
     return state, state.epoch

@@ -1,8 +1,13 @@
-"""Load phi and PCRNet weights and Adam state from the JAX package's layout.
+"""Load phi, chart and PCRNet weights and Adam state from the JAX
+package's layout.
 
 The JAX package keeps phi as ``(params, state)`` pytrees: a tuple over
 flows of a tuple over layers of ``{"w", "b", "beta"}`` (params) and
-``{"u", "v"}`` (state); and PCRNet as ``{"feature": tuple of {"w", "b"},
+``{"u", "v"}`` (state) for a Residual chain, a tuple over flows of
+``{"u", "w", "b"}`` for a Planar chain; the pseudo criterion stacks
+``phi_num`` such trees on a leading axis; the charts are a tuple of
+``{"w", "b"}`` (``SphereChartMLP``) or ``{"encoder": ..., "flow": ...}``
+(``EncoderFlowChart``); PCRNet is ``{"feature": tuple of {"w", "b"},
 "head": tuple of {"w", "b"}}``. These helpers take those trees with NUMPY
 leaves (callers apply ``np.asarray`` to the JAX leaves), so this module
 needs no JAX.
@@ -15,7 +20,10 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..flows.actnorm import ActNorm
 from ..flows.base import FlowChain
+from ..flows.chart import EncoderFlowChart, SphereChartMLP
+from ..flows.planar import PlanarFlow
 from ..models.pcrnet import PCRNet
 
 
@@ -29,9 +37,17 @@ def _flat(tree: Sequence[Sequence[dict]]):
         yield from block
 
 
+def _assign(dst: torch.Tensor, src, name: str) -> None:
+    val = torch.tensor(np.asarray(src), dtype=dst.dtype)
+    if val.shape != dst.shape:
+        raise ValueError(f"{name}: shape {tuple(val.shape)} != {tuple(dst.shape)}")
+    dst.copy_(val)
+
+
 @torch.no_grad()
 def load_phi(flow: FlowChain, params, state) -> FlowChain:
-    """Copy ``(params, state)`` into ``flow`` in place; returns ``flow``."""
+    """Copy a Residual chain's ``(params, state)`` into ``flow`` in place;
+    returns ``flow``."""
     layers = list(_layers(flow))
     p_flat, s_flat = list(_flat(params)), list(_flat(state))
     if not (len(layers) == len(p_flat) == len(s_flat)):
@@ -40,13 +56,84 @@ def load_phi(flow: FlowChain, params, state) -> FlowChain:
     for layer, p, s in zip(layers, p_flat, s_flat):
         for name, src in (("w", p["w"]), ("b", p["b"]), ("beta", p["beta"]),
                           ("u", s["u"]), ("v", s["v"])):
-            dst = getattr(layer, name)
-            val = torch.tensor(np.asarray(src), dtype=dst.dtype)
-            if val.shape != dst.shape:
-                raise ValueError(f"{name}: shape {tuple(val.shape)} != "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(val)
+            _assign(getattr(layer, name), src, name)
     return flow
+
+
+@torch.no_grad()
+def load_planar(flow: PlanarFlow, params) -> PlanarFlow:
+    """Copy one planar flow's ``{"u", "w", "b"}`` in place."""
+    for name in ("u", "w", "b"):
+        _assign(getattr(flow, name), params[name], name)
+    return flow
+
+
+@torch.no_grad()
+def load_actnorm(flow: ActNorm, params) -> ActNorm:
+    """Copy one ActNorm's ``{"s", "t"}`` in place."""
+    for name in ("s", "t"):
+        _assign(getattr(flow, name), params[name], name)
+    return flow
+
+
+def _index(tree, i: int):
+    """The i-th slice of every leaf of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index(v, i) for v in tree)
+    return np.asarray(tree)[i]
+
+
+def load_pseudo_phis(phis: Sequence[FlowChain], params, state) -> None:
+    """Copy the pseudo criterion's stacked ensemble (leading ``phi_num``
+    axis on every leaf) into ``phis``, flow i from slice i; Residual or
+    Planar chains."""
+    for i, phi in enumerate(phis):
+        p_i, s_i = _index(params, i), _index(state, i)
+        if isinstance(phi.flows[0], PlanarFlow):
+            for block, p in zip(phi.flows, p_i):
+                load_planar(block, p)
+        else:
+            load_phi(phi, p_i, s_i)
+
+
+def _chart_pairs(chart, params):
+    """(parameter, numpy leaf) of a chart, with the leaf's name."""
+    dense = chart.layers if isinstance(chart, SphereChartMLP) else chart.encoder
+    tree = params if isinstance(chart, SphereChartMLP) else params["encoder"]
+    for layer, p in zip(dense, tree):
+        yield layer.w, p["w"], "w"
+        yield layer.b, p["b"], "b"
+    if isinstance(chart, EncoderFlowChart):
+        for layer, p in zip(_layers(chart.flow), _flat(params["flow"])):
+            for name in ("w", "b", "beta"):
+                yield getattr(layer, name), p[name], name
+
+
+@torch.no_grad()
+def load_chart(chart, params, state):
+    """Copy a ``SphereChartMLP``'s or ``EncoderFlowChart``'s JAX
+    ``(params, state)`` into ``chart`` in place; returns ``chart``."""
+    for dst, src, name in _chart_pairs(chart, params):
+        _assign(dst, src, name)
+    if isinstance(chart, EncoderFlowChart):
+        for layer, s in zip(_layers(chart.flow), _flat(state["flow"])):
+            for name in ("u", "v"):
+                _assign(getattr(layer, name), s[name], name)
+    return chart
+
+
+def load_max_ssw_adam_state(opt: torch.optim.Adam, chart, mu, nu, count: Any) -> None:
+    """Set the max-SSW chart optimizer's state from an optax
+    ``ScaleByAdamState`` (``mu``/``nu`` in the chart's params layout,
+    ``count`` the step)."""
+    step = float(np.asarray(count))
+    for (p, m, _), (_, v, _) in zip(_chart_pairs(chart, mu), _chart_pairs(chart, nu)):
+        opt.state[p] = {
+            "step": torch.tensor(step),
+            "exp_avg": torch.tensor(np.asarray(m), dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(v), dtype=p.dtype, device=p.device)}
 
 
 def phi_tree(flow: FlowChain):

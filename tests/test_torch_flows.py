@@ -134,6 +134,12 @@ def test_fresh_init_is_a_contraction_near_identity():
     assert float(torch.abs(shift - shift[0]).max()) < 1e-2
 
 
-def test_planar_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        t_make_flow("Planar", 2)
+def test_make_flow_builds_planar_chains_and_rejects_unknown_names():
+    g = torch.Generator().manual_seed(0)
+    flow = t_make_flow("Planar", 4, generator=g)
+    assert len(flow.flows) == 4
+    x = torch.randn(5, 3, generator=g)
+    y, ld = flow.forward_logdet(x, logdet=True)
+    assert y.shape == (5, 3) and ld.shape == (5,) and bool(torch.isfinite(ld).all())
+    with pytest.raises(ValueError, match="not valid"):
+        t_make_flow("Glow", 2)

@@ -36,5 +36,7 @@ def test_every_module_is_checked():
             "pointnet.py", "synthetic.py", "modelnet.py", "transforms.py",
             "dataset.py", "trainer.py", "config.py", "checkpoint.py",
             "baselines.py", "profile_torch_train.py"} <= names
+    assert {"ot1d.py", "spherical.py", "chart.py", "planar.py", "actnorm.py",
+            "pseudo.py", "ssw_loss.py", "evaluate.py"} <= names
     dirs = {p.parent.name for p in FILES}
     assert {"models", "data", "train", "ops", "losses", "utils", "flows"} <= dirs

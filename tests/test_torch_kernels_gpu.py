@@ -517,3 +517,112 @@ def test_registration_train_step_makes_no_host_sync(cuda, tmp_path, criterion, s
     assert bool(torch.isfinite(loss))
     want = 4 if (criterion, solver) == ("w_cos", "sinkhorn") else 0
     assert tp.sinkhorn_points.launches == k0 + want
+
+
+def _registration_trainer(tmp_path, criterion, n=128, **kw):
+    """A trainer at B=128 on the 'composite' bank, its state and a batch."""
+    from shwd_torch.data import DatasetConfig, RegistrationDataset, TransformConfig
+    from shwd_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(
+        log_dir=str(tmp_path), criterion=criterion, batch_size=128,
+        dataset=DatasetConfig(source_point_num=n, target_point_num=n, num_synthetic=128,
+                              synthetic_kinds=("composite",), cache_dir=str(tmp_path / "mc"),
+                              transform=TransformConfig(noise_sigma=0.02)), **kw)
+    trainer = Trainer(cfg)
+    ds = RegistrationDataset(cfg.dataset, "train")
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return trainer, state, next(ds.batches(gen, np.arange(128), 128, shuffle=False))
+
+
+def _new_criteria_kw(case):
+    from shwd_torch.losses import MaxSSWConfig, SHWDConfig, TransportConfig
+    if case == "pseudo_w_cos":
+        return "pseudo_w_cos", 128, {}
+    if case == "max_ssw":
+        return "max_ssw", 128, dict(max_ssw=MaxSSWConfig(
+            num_projections=512, max_iter=1, phi_lr=9.213e-5, p=1.0))
+    return "w_cos", 1024, dict(shwd=SHWDConfig(
+        transport=TransportConfig(cost="geodesic", p=2.0, solver="ssw"), max_iter=1,
+        lam=1.311e-5, phi_lr=9.213e-5, phi_weight_decay=1.41e-8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["pseudo_w_cos", "max_ssw", "w_cos_ssw_1024"])
+def test_new_criteria_train_step_makes_no_host_sync(cuda, tmp_path, case):
+    """One train step of pseudo_w_cos (K3 twice), max_ssw (512 projections,
+    p = 1) and w_cos on the ssw solver at N=1024 (the p = 2 correlation
+    branch) never waits on the card."""
+    criterion, n, kw = _new_criteria_kw(case)
+    trainer, state, batch = _registration_trainer(tmp_path, criterion, n, **kw)
+    trainer._train_step(state, batch)            # first step: libraries load
+    torch.cuda.synchronize()
+    k0 = tp.sinkhorn_points.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            loss = trainer._train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
+    assert tp.sinkhorn_points.launches == k0 + (4 if case == "pseudo_w_cos" else 0)
+
+
+@pytest.mark.gpu
+def test_pseudo_criterion_launches_k3_phi_num_times(cuda, tmp_path):
+    """A pseudo_w_cos criterion call puts K3 on the card once per ensemble
+    member, in train and in eval mode (the wrapper's count; the device's
+    timeline in a fresh process, as the K4 test explains)."""
+    script = """
+import json, torch
+from shwd_torch.losses import PseudoSHWDConfig, PseudoSHWDLoss, TransportConfig
+from shwd_torch.flows import make_flow
+from shwd_torch.ops import sinkhorn_fused as sp
+crit = PseudoSHWDLoss(lambda g: make_flow("Residual", 3, generator=g),
+                      PseudoSHWDConfig(transport=TransportConfig(), phi_num=3))
+state = crit.init(torch.Generator(device="cuda").manual_seed(0))
+g = torch.Generator(device="cuda").manual_seed(1)
+x = torch.randn(128, 128, 3, generator=g, device="cuda", requires_grad=True)
+y = torch.randn(128, 128, 3, generator=g, device="cuda")
+crit.apply(state, x, y, True)[0][0].backward()
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+counts = []
+for train in (True, False):
+    k0 = sp.sinkhorn_points.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        crit.apply(state, x, y, train)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "sinkhorn_points" in ev.name]
+    counts.append([sp.sinkhorn_points.launches - k0, len(names)])
+print(json.dumps(counts))
+"""
+    root = Path(__file__).resolve().parent.parent
+    run = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert json.loads(run.stdout.strip().splitlines()[-1]) == [[3, 3], [3, 3]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1.0, 2.0, 3.0])
+def test_ssw_value_on_the_card_matches_the_cpu(cuda, p):
+    """The ssw transport at N=1024 (16 pairs of clouds on S^2, 100 frames
+    drawn on the CPU and handed to both): the card's value is the CPU's at
+    rtol 1e-5 (p = 2 takes the correlation branch, cuFFT against the CPU's
+    FFT; p = 3 the bisection)."""
+    from shwd_torch.losses import TransportConfig, make_transport
+    from shwd_torch.ops.spherical import stiefel_frames
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 1024, 3, generator=g)
+    y = x + 0.2 * torch.randn(16, 1024, 3, generator=g)
+    x, y = (t / t.norm(dim=-1, keepdim=True) for t in (x, y))
+    frames = stiefel_frames(torch.Generator().manual_seed(4), 100, 3)
+    w = make_transport(TransportConfig(solver="ssw", p=p, reduce="none"))
+    want = w(x, y, frames=frames)
+    got = w(x.to(cuda), y.to(cuda), frames=frames.to(cuda)).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)

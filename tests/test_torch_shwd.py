@@ -168,11 +168,25 @@ def test_unbatched_warm_path_drops_batch_dim():
     assert w.shape == ()
 
 
-def test_later_solvers_raise():
-    for solver in ("ssw", "exact"):
-        with pytest.raises(NotImplementedError):
-            ts.SHWDLoss(lambda g: t_make_flow("Residual", 1, generator=g),
-                        ts.SHWDConfig(transport=TTransport(solver=solver)))
+@pytest.mark.parametrize("solver", ["ssw", "exact"])
+def test_ssw_and_exact_solvers_run_in_the_criterion(solver):
+    """A train call on each solver moves phi and gives a finite value with
+    a gradient to x; 'ssw' draws its frames from the state's generator,
+    so two criteria from equal seeds agree."""
+    x, y = _clouds(16, seed=6)
+    vals = []
+    for _ in range(2):
+        crit = ts.SHWDLoss(lambda g: t_make_flow("Residual", 1, generator=g),
+                           ts.SHWDConfig(transport=TTransport(solver=solver), **KW))
+        state = crit.init(torch.Generator().manual_seed(0))
+        before = [p.clone() for p in state.phi.parameters()]
+        xt = torch.from_numpy(x).requires_grad_(True)
+        (w, _, _), state = crit.apply(state, xt, torch.from_numpy(y), True)
+        w.backward()
+        assert bool(torch.isfinite(w)) and float(xt.grad.abs().max()) > 0
+        assert not all(torch.equal(a, b) for a, b in zip(before, state.phi.parameters()))
+        vals.append(float(w.detach()))
+    assert vals[0] == vals[1]
 
 
 @pytest.mark.parametrize("train", [True, False])

@@ -91,14 +91,14 @@ def _one_step(criterion, solver, tmp_path):
     return (jloss, jgrads, jnew), (tstate, tloss)
 
 
-def _compare_step(jside, tside, rtol):
-    """Loss, PCRNet gradients, parameters after the Adam step, phi after
-    its inner step. Gradients agree to rtol, with an absolute floor of
+def _compare_model(jside, tside, rtol):
+    """Loss, PCRNet gradients and parameters after the Adam step.
+    Gradients agree to rtol, with an absolute floor of
     rtol / 100 of the largest gradient. The first Adam step moves every
     weight by lr * g / (|g| + 1e-8), that is by +-lr whatever |g|: where
     |g| is clear of that floor both sides have the same sign and the
     weights agree to 2e-5; below it the sign is rounding noise, so there
-    only |delta| <= 2 lr is asked."""
+    only |delta| <= 2 lr is asked. ``_compare_step`` adds phi."""
     (jloss, jgrads, jnew), (tstate, tloss) = jside, tside
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=rtol)
     tgrads = {"feature": [{k: getattr(l, k).grad.numpy() for k in ("w", "b")}
@@ -121,6 +121,12 @@ def _compare_step(jside, tside, rtol):
                 clear = np.abs(want) > 4 * floor
                 np.testing.assert_allclose(p_got[clear], p_want[clear], atol=2e-5)
                 assert np.abs(p_got - p_want).max() <= 2 * LR + 1e-6
+
+
+def _compare_step(jside, tside, rtol):
+    """``_compare_model``, then phi after its inner step."""
+    _compare_model(jside, tside, rtol)
+    (_, _, jnew), (tstate, _) = jside, tside
     if tstate.crit_state is not None:
         tp, ts = phi_tree(tstate.crit_state.phi)
         jc = jnew.crit_state
@@ -249,7 +255,8 @@ def _fit(cfg, **kw):
     return tr, ds, tr.fit(ds, verbose=False, **kw)
 
 
-@pytest.mark.parametrize("criterion", ["cd", "w_cos", "w1_cos", "sinkhorn"])
+@pytest.mark.parametrize("criterion", ["cd", "w_cos", "w1_cos", "sinkhorn",
+                                       "pseudo_w_cos", "max_ssw"])
 def test_trainer_runs_and_checkpoints(tmp_path, criterion):
     cfg = tiny_config(tmp_path, criterion)
     tr, _, result = _fit(cfg)
@@ -443,8 +450,6 @@ def test_config_roundtrip_and_jax_written_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(criterion="pseudo_w_cos"), "Queue 1 item 6"),
-    (dict(criterion="max_ssw"), "Queue 1 item 4"),
     (dict(mesh_data=2), "Queue 1 item 14"),
     (dict(mesh_slices=2), "Queue 1 item 14"),
 ])

@@ -5,7 +5,9 @@ Builds the Trainer at the registration config (B=128, N=M=128, full-width
 PCRNet with 3 pose iterations, 3 Residual flow layers, procedural shape
 bank), takes ``--warm`` train steps, then times ``--steps`` more without the
 profiler and profiles ``--steps`` more with torch.profiler. One JSON line
-per solver (``sinkhorn``, ``hybrid``) and for ``criterion="cd"``:
+per case: ``w_cos`` on the ``sinkhorn`` and ``hybrid`` solvers, ``cd``,
+``pseudo_w_cos`` (two frozen flows, max), ``max_ssw`` (mlp chart, 512
+projections, p = 1) and ``w_cos`` on the ``ssw`` solver at N = M = 1024:
 
   - wall ms per step without the profiler (host clock, synchronised) and
     under it, device busy ms per step and the idle share;
@@ -38,11 +40,40 @@ GROUPS = {"k3": ("sinkhorn_points",), "k2": ("auction_kernel",),
           "k4": ("chamfer",)}
 
 
-def make_config(log_dir, solver, criterion, batch, points):
+def case_overrides(label):
+    """(criterion, points or None for --points, TrainConfig fields) of a
+    case."""
+    from shwd_torch.losses import MaxSSWConfig, SHWDConfig, TransportConfig
+    if label == "sinkhorn":
+        return "w_cos", None, {}
+    if label == "hybrid":
+        return "w_cos", None, dict(shwd=SHWDConfig(
+            transport=TransportConfig(cost="lp", p=2.0, solver="hybrid", eps=5e-3,
+                                      num_iters=50, num_scales=4),
+            max_iter=1, lam=1.3e-5, phi_lr=9.2e-5))
+    if label == "pseudo":
+        return "pseudo_w_cos", None, dict(pseudo_phi_num=2, pseudo_combine="max")
+    if label == "max_ssw":
+        return "max_ssw", None, dict(max_ssw_chart="mlp", max_ssw=MaxSSWConfig(
+            num_projections=512, max_iter=1, phi_lr=9.213e-5, p=1.0))
+    if label == "ssw_1024":
+        return "w_cos", 1024, dict(shwd=SHWDConfig(
+            transport=TransportConfig(cost="geodesic", p=2.0, solver="ssw",
+                                      num_projections=100),
+            max_iter=1, lam=1.311e-5, phi_lr=9.213e-5, phi_weight_decay=1.410e-8))
+    return label, None, {}
+
+
+CASES = ("sinkhorn", "hybrid", "cd", "pseudo", "max_ssw", "ssw_1024")
+
+
+def make_config(log_dir, label, batch, points):
     from shwd_torch.data import DatasetConfig, TransformConfig
     from shwd_torch.losses import SHWDConfig, TransportConfig
     from shwd_torch.train import TrainConfig
-    return TrainConfig(
+    criterion, fixed, fields = case_overrides(label)
+    points = fixed or points
+    return TrainConfig(**{**dict(
         experiment="profile", log_dir=str(log_dir), criterion=criterion,
         batch_size=batch,
         dataset=DatasetConfig(
@@ -52,17 +83,17 @@ def make_config(log_dir, solver, criterion, batch, points):
             transform=TransformConfig(noise_sigma=0.02)),
         pcr_iteration_num=3,
         shwd=SHWDConfig(
-            transport=TransportConfig(cost="lp", p=2.0, solver=solver,
+            transport=TransportConfig(cost="lp", p=2.0, solver="sinkhorn",
                                       eps=5e-3, num_iters=50, num_scales=4),
             max_iter=1, lam=1.3e-5, phi_lr=9.2e-5),
-        phi_num_flow_layer=3)
+        phi_num_flow_layer=3), **fields})
 
 
-def profile_case(label, solver, criterion, args, smi, log_dir):
+def profile_case(label, args, smi, log_dir):
     from shwd_torch.data import RegistrationDataset
     from shwd_torch.train import Trainer
 
-    cfg = make_config(log_dir, solver, criterion, args.batch, args.points)
+    cfg = make_config(log_dir, label, args.batch, args.points)
     trainer = Trainer(cfg)
     dev = trainer.device
     ds = RegistrationDataset(cfg.dataset, "train")
@@ -110,7 +141,8 @@ def profile_case(label, solver, criterion, args, smi, log_dir):
     parts = {k: group(names) for k, names in GROUPS.items()}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
-        "case": label, "card": smi, "batch": args.batch, "points": args.points,
+        "case": label, "card": smi, "batch": args.batch,
+        "points": cfg.dataset.source_point_num,
         "warm_steps": args.warm, "steps": args.steps, "loss": loss,
         "wall_ms_per_step": wall_ms,
         "clouds_per_second": args.batch / wall_ms * 1e3,
@@ -145,10 +177,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     with tempfile.TemporaryDirectory() as log_dir:
-        for label, solver, criterion in (("sinkhorn", "sinkhorn", "w_cos"),
-                                         ("hybrid", "hybrid", "w_cos"),
-                                         ("cd", "sinkhorn", "cd")):
-            profile_case(label, solver, criterion, args, smi, log_dir)
+        for label in CASES:
+            profile_case(label, args, smi, log_dir)
     return 0
 
 
