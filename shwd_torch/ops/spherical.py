@@ -75,13 +75,15 @@ def sliced_cost_sphere(x: torch.Tensor, y: torch.Tensor, frames: torch.Tensor,
 def sliced_wasserstein_sphere(generator: torch.Generator | None, x: torch.Tensor,
                               y: torch.Tensor, num_projections: int = 100,
                               p: float = 2,
-                              per_batch_frames: bool = False) -> torch.Tensor:
+                              per_batch_frames: bool = False,
+                              frames: torch.Tensor | None = None) -> torch.Tensor:
     """SSW_p^p between clouds on S^2, the batch mean if batched.
     ``per_batch_frames`` draws independent frames per batch element;
-    otherwise all elements share L frames."""
+    otherwise all elements share L frames. ``frames`` replaces the draw."""
     batched = x.ndim == 3
-    batch_shape = (x.shape[0],) if batched and per_batch_frames else ()
-    frames = stiefel_frames(generator, num_projections, x.shape[-1],
-                            batch_shape=batch_shape, device=x.device)
+    if frames is None:
+        batch_shape = (x.shape[0],) if batched and per_batch_frames else ()
+        frames = stiefel_frames(generator, num_projections, x.shape[-1],
+                                batch_shape=batch_shape, device=x.device)
     cost = sliced_cost_sphere(x, y, frames, p=p)
     return torch.mean(cost) if batched else cost

@@ -1,15 +1,21 @@
 """Wasserstein gradient flow: deform a point cloud to minimise a distance.
 
-Counterpart of ``shwd_tpu/train/flow_driver.py`` for ``method="SHWD"``:
-the evolving cloud's coordinates are the parameters, Adam descends SHWD
-toward a fixed target, and exact W2 (or, with ``eval_metric="cd"``, the
-Chamfer distance) is recorded every ``eval_interval`` iterations. The step runs on the device without host syncs; each interval
-ends in ``torch.cuda.synchronize()`` so ``interval_seconds`` covers the
-steps and not the eval.
+Counterpart of ``shwd_tpu/train/flow_driver.py``: the evolving cloud's
+coordinates are the parameters, Adam descends the chosen distance toward
+a fixed target, and exact W2 (or, with ``eval_metric="cd"``, the Chamfer
+distance) is recorded every ``eval_interval`` iterations. Every method of
+the JAX package's zoo runs: SHWD and the sliced distances of
+``losses/sliced_zoo.py``, the spherical SSW, Chamfer and the entropic W2.
+
+The step runs on the device without host syncs. Before the timed window
+``run_flow`` loads the path's kernels and runs one step on copies of the
+state; each interval ends in ``torch.cuda.synchronize()``, so
+``interval_seconds`` covers the steps and not the eval or any build.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -18,16 +24,24 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..device import resolve_device
 from ..flows import make_flow
+from ..losses import sliced_zoo
 from ..losses.shwd import SHWDConfig, SHWDLoss
 from ..losses.transport import TransportConfig
-from ..ops.chamfer import chamfer_tiled
+from ..ops.chamfer import chamfer, chamfer_tiled
+from ..ops.costs import cost_matrix
+from ..ops.sinkhorn import emd2_approx
+from ..ops.spherical import sliced_wasserstein_sphere
+from ..utils.profiling import counted_flops
 
 
 @dataclasses.dataclass(frozen=True)
 class FlowConfig:
-    # the JAX package's method zoo; this port runs "SHWD"
+    # SHWD | SWD | MSWD | SSWD | SSWD_W1 | ASWD | DSWD | CD | W2 |
+    # GSWD_POLY | GSWD_POLY3 | MGSWD_POLY | GSWD_CIRC | MGSWD_CIRC |
+    # GSW_NN | MGSW_NN
     method: str = "SHWD"
     num_iterations: int = 400
     eval_interval: int = 5
@@ -61,7 +75,25 @@ class FlowResult:
     eval_iters: np.ndarray
     interval_seconds: np.ndarray   # wall time per reporting interval
     steps_per_second: float
-    flops_per_step: float = float("nan")   # not counted by the port yet
+    # matmul-class FLOPs of one step, counted on the warm-up step
+    # (utils.profiling.counted_flops; the kernels add 0)
+    flops_per_step: float = float("nan")
+
+
+# the CUDA kernels each SHWD solver's path may launch
+_SOLVER_KERNELS = {"hybrid": ("emd2_warmup", "auction"), "auction": ("auction",),
+                   "sinkhorn": ("sinkhorn_points",)}
+_PLAIN = ("SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY", "GSWD_POLY3",
+          "MGSWD_POLY", "GSWD_CIRC", "MGSWD_CIRC")
+# the methods that keep a learned net across steps
+_STATEFUL = ("ASWD", "DSWD", "GSW_NN", "MGSW_NN")
+
+
+def path_kernels(cfg: FlowConfig) -> tuple[str, ...]:
+    """The CUDA kernel sources a run of ``cfg`` may launch, the eval
+    metric's included."""
+    names = _SOLVER_KERNELS.get(cfg.shwd_solver, ()) if cfg.method == "SHWD" else ()
+    return names + (("chamfer",) if cfg.eval_metric == "cd" else ())
 
 
 def _make_point_opt(cfg: FlowConfig, points: torch.Tensor):
@@ -79,42 +111,152 @@ def _make_point_opt(cfg: FlowConfig, points: torch.Tensor):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
-def _make_loss_step(cfg: FlowConfig, device: torch.device):
-    """Returns (init_state, step(points, target, state) -> loss).
+def _descend(points, state, loss) -> torch.Tensor:
+    """One Adam step of the coordinates on ``loss``; no gradient reaches
+    any learned net."""
+    state["opt"].zero_grad(set_to_none=True)
+    loss.backward(inputs=[points])
+    state["opt"].step()
+    if state.get("sched") is not None:
+        state["sched"].step()
+    return loss.detach()
 
-    ``init_state(generator, phi=None)`` builds the criterion state;
-    ``step`` updates the criterion state and ``points`` in place and
-    returns the loss tensor (not synced to the host).
+
+def _plain_loss(cfg: FlowConfig, pts, target, gen, draws):
+    """The stateless methods. ``draws`` (a dict) hands in the random
+    directions the method would draw from ``gen``."""
+    L, m = cfg.num_projections, cfg.method
+    if m == "SWD":
+        return sliced_zoo.sliced_wasserstein_distance(gen, pts, target, L, **draws)
+    if m == "MSWD":
+        return sliced_zoo.max_sliced_wasserstein_distance(gen, pts, target, **draws)
+    if m in ("SSWD", "SSWD_W1"):
+        return sliced_wasserstein_sphere(gen, pts, target, L, p=2 if m == "SSWD" else 1,
+                                         **draws)
+    if m == "CD":
+        return chamfer(pts[None], target[None])
+    if m == "W2":
+        # eps-scaled log-Sinkhorn towards the exact plan, the plan held
+        # constant in the gradient (envelope)
+        c = cost_matrix(pts[None], target[None], "lp", 2.0)
+        return emd2_approx(c, eps=5e-3, num_iters=50, num_scales=4)[0]
+    if m == "GSWD_POLY":
+        return sliced_zoo.gswd_polynomial(gen, pts, target, L, degree=5, **draws)
+    if m == "GSWD_POLY3":
+        return sliced_zoo.gswd_polynomial3_2d(gen, pts, target, L, **draws)
+    if m == "MGSWD_POLY":
+        return sliced_zoo.max_gswd_polynomial(gen, pts, target, degree=3, **draws)
+    if m == "GSWD_CIRC":
+        return sliced_zoo.gswd_circular(gen, pts, target, L, **draws)
+    if m == "MGSWD_CIRC":
+        return sliced_zoo.max_gswd_circular(gen, pts, target, **draws)
+    raise ValueError(f"unknown flow method {m!r}")
+
+
+def _stateful_init(cfg: FlowConfig, gen):
+    if cfg.method == "ASWD":
+        return sliced_zoo.init_mapping(gen, 3)
+    if cfg.method == "DSWD":
+        return sliced_zoo.init_transform_net(gen, 3)
+    return sliced_zoo.init_gsw_mlp(gen, 3)
+
+
+def _stateful_loss(cfg: FlowConfig, pts, target, gen, phi, draws):
+    """(loss, new phi) of the methods with a learned net; a fresh inner
+    Adam runs in every step."""
+    L, m = cfg.num_projections, cfg.method
+    if m == "ASWD":
+        return sliced_zoo.augmented_sliced_wasserstein_distance(
+            gen, pts, target, phi, num_projections=L, max_iter=10,
+            lam=0.05 / torch.mean(torch.abs(target)), **draws)
+    if m == "DSWD":
+        return sliced_zoo.distributional_sliced_wasserstein_distance(
+            gen, pts, target, phi, num_projections=L, max_iter=10, **draws)
+    if m == "GSW_NN":
+        return sliced_zoo.gsw_nn(pts, target, phi), phi
+    return sliced_zoo.max_gsw_nn(pts, target, phi, max_iter=10)
+
+
+def _make_loss_step(cfg: FlowConfig, device: torch.device):
+    """Returns (init_state, step(points, target, state, draws=None) -> loss).
+
+    ``init_state(generator, phi=None)`` builds the method's state: the
+    generator every draw comes from, SHWD's criterion state or the learned
+    net of ASWD, DSWD, GSW_NN and MGSW_NN (``phi`` replaces the fresh one,
+    e.g. converted JAX weights). ``step`` updates the state and ``points``
+    in place and returns the loss tensor (not synced to the host).
+    ``draws`` hands in the step's random directions by name (tests).
     """
-    if cfg.method != "SHWD":
-        raise NotImplementedError(
-            f"flow method {cfg.method!r} is ported in a later slice")
-    hybrid = cfg.shwd_solver == "hybrid"
-    crit = SHWDLoss(
-        lambda g: make_flow("Residual", cfg.shwd_layers, generator=g).to(device),
-        SHWDConfig(
-            transport=TransportConfig(
-                cost="lp", p=2.0, solver=cfg.shwd_solver, eps=cfg.shwd_eps,
-                num_iters=cfg.hybrid_warmup_iters if hybrid else cfg.shwd_num_iters,
-                num_scales=cfg.hybrid_warmup_scales if hybrid else cfg.shwd_num_scales,
-                num_projections=cfg.num_projections),
-            max_iter=cfg.shwd_max_iter, lam=cfg.shwd_lam,
-            phi_lr=cfg.shwd_phi_lr, phi_weight_decay=cfg.shwd_phi_wd))
+    if cfg.method == "SHWD":
+        hybrid = cfg.shwd_solver == "hybrid"
+        crit = SHWDLoss(
+            lambda g: make_flow("Residual", cfg.shwd_layers, generator=g).to(device),
+            SHWDConfig(
+                transport=TransportConfig(
+                    cost="lp", p=2.0, solver=cfg.shwd_solver, eps=cfg.shwd_eps,
+                    num_iters=cfg.hybrid_warmup_iters if hybrid else cfg.shwd_num_iters,
+                    num_scales=cfg.hybrid_warmup_scales if hybrid else cfg.shwd_num_scales,
+                    num_projections=cfg.num_projections),
+                max_iter=cfg.shwd_max_iter, lam=cfg.shwd_lam,
+                phi_lr=cfg.shwd_phi_lr, phi_weight_decay=cfg.shwd_phi_wd))
+
+        def init_state(generator, phi=None):
+            return {"gen": generator, "crit": crit.init(generator, phi)}
+
+        def step(points, target, state, draws=None):
+            (w, _, _), state["crit"] = crit.apply(state["crit"], points[None],
+                                                  target[None], train=True)
+            return _descend(points, state, w)
+
+        return init_state, step
+
+    if cfg.method in _STATEFUL:
+        def init_state(generator, phi=None):
+            return {"gen": generator,
+                    "phi": _stateful_init(cfg, generator) if phi is None else phi}
+
+        def step(points, target, state, draws=None):
+            loss, state["phi"] = _stateful_loss(cfg, points, target, state["gen"],
+                                                state["phi"], draws or {})
+            return _descend(points, state, loss)
+
+        return init_state, step
+
+    if cfg.method not in _PLAIN:
+        raise ValueError(f"unknown flow method {cfg.method!r}")
 
     def init_state(generator, phi=None):
-        return {"crit": crit.init(generator, phi)}
+        return {"gen": generator}
 
-    def step(points, target, state):
-        (w, _, _), state["crit"] = crit.apply(state["crit"], points[None],
-                                              target[None], train=True)
-        state["opt"].zero_grad(set_to_none=True)
-        w.backward(inputs=[points])      # no gradient into phi's weights
-        state["opt"].step()
-        if state.get("sched") is not None:
-            state["sched"].step()
-        return w.detach()
+    def step(points, target, state, draws=None):
+        loss = _plain_loss(cfg, points, target, state["gen"], draws or {})
+        return _descend(points, state, loss)
 
     return init_state, step
+
+
+def _warm_up(cfg: FlowConfig, step, state, points, target, dev) -> float:
+    """Build and load the path's kernels, then run one step on copies of
+    the points, the method's state and the point optimiser, restoring the
+    generator afterwards: the run's trajectory is the one it would be
+    without this. Returns the step's matmul-class FLOPs."""
+    if dev.type == "cuda":
+        names = path_kernels(cfg)
+        _kernels.build_all(names)
+        for name in names:
+            _kernels.load(name)
+    gen = state["gen"]
+    saved = gen.get_state()
+    w_points = points.detach().clone().requires_grad_(True)
+    # the generator is shared, not copied: its state is restored below
+    w_state = copy.deepcopy({k: v for k, v in state.items() if k not in ("opt", "sched")},
+                            {id(gen): gen})
+    w_state["opt"], w_state["sched"] = _make_point_opt(cfg, w_points)
+    flops = counted_flops(step, w_points, target, w_state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    gen.set_state(saved)
+    return flops
 
 
 def run_flow(source, target, cfg: FlowConfig,
@@ -160,6 +302,7 @@ def run_flow(source, target, cfg: FlowConfig,
     evals = [eval_fn(host(points), target_np)]
     iters = [0]
     times = []
+    flops_step = _warm_up(cfg, step, state, points, tgt, dev)
     for it in range(cfg.num_iterations // cfg.eval_interval):
         sync()
         t0 = time.perf_counter()
@@ -182,4 +325,5 @@ def run_flow(source, target, cfg: FlowConfig,
         interval_seconds=times_arr,
         steps_per_second=cfg.eval_interval / max(float(times_arr.mean()), 1e-12)
         if len(times) else float("nan"),
+        flops_per_step=flops_step,
     )

@@ -8,7 +8,9 @@ flows of a tuple over layers of ``{"w", "b", "beta"}`` (params) and
 ``phi_num`` such trees on a leading axis; the charts are a tuple of
 ``{"w", "b"}`` (``SphereChartMLP``) or ``{"encoder": ..., "flow": ...}``
 (``EncoderFlowChart``); PCRNet is ``{"feature": tuple of {"w", "b"},
-"head": tuple of {"w", "b"}}``. These helpers take those trees with NUMPY
+"head": tuple of {"w", "b"}}``; the sliced zoo's nets are ``{"w", "b"}``
+(the ASWD mapping, the DSWD transform net) and a tuple of them (the GSW
+MLP), which the port keeps as the same trees of tensors. These helpers take those trees with NUMPY
 leaves (callers apply ``np.asarray`` to the JAX leaves), so this module
 needs no JAX.
 """
@@ -216,3 +218,30 @@ def load_pcrnet_adam_state(opt: torch.optim.Adam, model: PCRNet, mu, nu,
                 "exp_avg_sq": torch.tensor(np.asarray(nu[group][i][name]),
                                            dtype=p.dtype, device=p.device),
             }
+
+
+def _zoo_linear(p, out_dim: int, in_dim: int, name: str, device) -> dict:
+    layer = {}
+    for key, shape in (("w", (out_dim, in_dim)), ("b", (out_dim,))):
+        val = torch.tensor(np.asarray(p[key]), dtype=torch.float32, device=device)
+        if tuple(val.shape) != shape:
+            raise ValueError(f"{name}.{key}: shape {tuple(val.shape)} != {shape}")
+        layer[key] = val
+    return layer
+
+
+def load_mapping(params, dim: int = 3, device: str | torch.device = "cpu") -> dict:
+    """The JAX ``init_mapping`` (ASWD) or ``init_transform_net`` (DSWD)
+    tree ``{"w" (dim, dim), "b" (dim,)}`` as the port's tree of tensors."""
+    return _zoo_linear(params, dim, dim, "mapping", device)
+
+
+def load_gsw_mlp(params, din: int = 3, dout: int = 10, num_filters: int = 32,
+                 depth: int = 3, device: str | torch.device = "cpu") -> tuple:
+    """The JAX ``init_gsw_mlp`` tree (a tuple of ``{"w" (out, in), "b"
+    (out,)}``) as the port's tuple of tensor dicts."""
+    widths = [din] + [num_filters] * depth + [dout]
+    if len(params) != len(widths) - 1:
+        raise ValueError(f"gsw mlp: {len(params)} layers, expected {len(widths) - 1}")
+    return tuple(_zoo_linear(p, widths[i + 1], widths[i], f"gsw_mlp[{i}]", device)
+                 for i, p in enumerate(params))

@@ -5,6 +5,8 @@ rule is the argmax / masked max of ``_auction_phase`` whatever the order of
 the merges. The kernel itself is held against the plain version on the card
 in test_torch_kernels_gpu.py, at every cluster size."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ with 32 x 32 tiles. The CUDA kernel itself is held against the plain
 version on the card in test_torch_kernels_gpu.py.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

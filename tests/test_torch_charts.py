@@ -2,6 +2,8 @@
 (SphereChartMLP, EncoderFlowChart) on weights converted from shwd_tpu,
 at rtol 1e-5."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

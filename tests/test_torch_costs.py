@@ -1,5 +1,7 @@
 """Port parity: cost matrices of shwd_torch vs shwd_tpu on the same inputs."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ jax.random and torch streams differ, so the transform math is compared on
 fixed draws (poses, noise and outliers made with numpy and handed to both
 sides), and the random parts are checked for their ranges."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,7 @@
 """Port parity: the exact EMD oracle vs shwd_tpu.ops.emd_exact."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import shutil
 
 import numpy as np

@@ -4,6 +4,8 @@ one-pass curves against a recount per threshold, every criterion's state
 through a checkpoint, and a resumed run against an uninterrupted one.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 
 import jax

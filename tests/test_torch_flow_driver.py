@@ -4,6 +4,8 @@ Both packages start from the same numpy clouds and the same phi (the JAX
 criterion state, converted); the port's steps run on the CPU.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 
 import jax
@@ -126,7 +128,51 @@ def test_run_flow_needs_cuda_unless_asked_for_cpu():
         tf.run_flow(src, tgt, tf.FlowConfig(**CFG))
 
 
-def test_other_methods_are_later_slices():
-    cfg = dataclasses.replace(tf.FlowConfig(**CFG), method="SWD")
-    with pytest.raises(NotImplementedError):
-        tf._make_loss_step(cfg, torch.device("cpu"))
+@pytest.mark.parametrize("method", ["SHWD", "DSWD", "SWD"])
+def test_run_flow_warm_up_leaves_the_trajectory_as_it_was(method):
+    """run_flow's warm-up step (on copies of the points, the state and the
+    optimiser, the generator restored) changes nothing: the clouds equal,
+    bit for bit, those of the same steps taken by hand from the same seed.
+    SHWD draws phi from the generator; DSWD also redraws its directions
+    every step and keeps a learned net; SWD draws its directions."""
+    src, tgt = _clouds(40, seed=3)
+    cfg = tf.FlowConfig(**{**CFG, "method": method, "num_iterations": 4,
+                           "eval_interval": 2, "shwd_layers": 2,
+                           "num_projections": 16})
+    res = tf.run_flow(src, tgt, cfg, device="cpu")
+    init_state, step = tf._make_loss_step(cfg, torch.device("cpu"))
+    state = init_state(torch.Generator().manual_seed(cfg.seed))
+    points = torch.from_numpy(src.copy()).requires_grad_(True)
+    state["opt"], state["sched"] = tf._make_point_opt(cfg, points)
+    target = torch.from_numpy(tgt)
+    for _ in range(cfg.num_iterations):
+        step(points, target, state)
+    np.testing.assert_array_equal(res.clouds, points.detach().numpy())
+    assert float(np.abs(res.clouds - src).max()) > 0.01
+
+
+def test_flops_per_step_is_counted_on_the_warm_up_step():
+    """flops_per_step: finite and positive for SHWD (phi's products, with
+    their backward), equal to counting one step by hand."""
+    from shwd_torch.utils.profiling import counted_flops
+    src, tgt = _clouds(32, seed=4)
+    cfg = tf.FlowConfig(**{**CFG, "num_iterations": 2, "eval_interval": 2,
+                           "shwd_layers": 2})
+    res = tf.run_flow(src, tgt, cfg, device="cpu")
+    assert np.isfinite(res.flops_per_step) and res.flops_per_step > 0
+    init_state, step = tf._make_loss_step(cfg, torch.device("cpu"))
+    state = init_state(torch.Generator().manual_seed(cfg.seed))
+    points = torch.from_numpy(src.copy()).requires_grad_(True)
+    state["opt"], state["sched"] = tf._make_point_opt(cfg, points)
+    assert counted_flops(step, points, torch.from_numpy(tgt), state) == res.flops_per_step
+
+
+def test_path_kernels():
+    """The kernel sources run_flow loads before its window, by path."""
+    cfg = tf.FlowConfig(**CFG)
+    assert tf.path_kernels(cfg) == ("emd2_warmup", "auction")
+    assert tf.path_kernels(dataclasses.replace(cfg, eval_metric="cd")) == (
+        "emd2_warmup", "auction", "chamfer")
+    assert tf.path_kernels(dataclasses.replace(cfg, shwd_solver="sinkhorn")) == (
+        "sinkhorn_points",)
+    assert tf.path_kernels(dataclasses.replace(cfg, method="SWD")) == ()

@@ -1,5 +1,7 @@
 """Port parity: the Residual flow phi on weights converted from shwd_tpu."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import copy
 
 import jax
@@ -143,3 +145,56 @@ def test_make_flow_builds_planar_chains_and_rejects_unknown_names():
     assert y.shape == (5, 3) and ld.shape == (5,) and bool(torch.isfinite(ld).all())
     with pytest.raises(ValueError, match="not valid"):
         t_make_flow("Glow", 2)
+
+
+def _logdet_pair(layers=2):
+    """A chain of Residual blocks with LipschitzMLP([3, 8, 3], 0.9) and no
+    zero init, as ``tests/test_flows.py``'s log-det case: (JAX chain,
+    params, state, the port's chain loaded from them)."""
+    from shwd_torch.flows.base import FlowChain as TChain
+    from shwd_torch.flows.lipschitz import LipschitzMLP as TMLP
+    from shwd_torch.flows.residual import ResidualFlow as TRes
+    from shwd_tpu.flows.base import FlowChain as JChain
+    from shwd_tpu.flows.lipschitz import LipschitzMLP as JMLP
+    from shwd_tpu.flows.residual import ResidualFlow as JRes
+    jflow = JChain([JRes(JMLP([3, 8, 3], 0.9, init_zeros=False)) for _ in range(layers)])
+    params, state = jax.tree_util.tree_map(np.asarray, jflow.init(jax.random.PRNGKey(0)))
+    tflow = TChain([TRes(TMLP([3, 8, 3], 0.9, init_zeros=False)) for _ in range(layers)])
+    return jflow, params, state, load_phi(tflow, params, state)
+
+
+def test_residual_logdet_matches_jax_and_bruteforce():
+    """FlowChain.forward_logdet(logdet=True) on a 2-block Residual chain:
+    the per-point log|det| against the JAX package's (d JVPs + slogdet)
+    and against torch.func.jacfwd of the whole map, atol 1e-4
+    (tests/test_flows.py's tolerance); the mapped points equal the plain
+    forward's."""
+    jflow, params, state, tflow = _logdet_pair()
+    x = np.random.default_rng(3).normal(size=(2, 9, 3)).astype(np.float32)
+    _, want = jflow.apply(params, state, jnp.asarray(x), logdet=True)
+    xt = torch.from_numpy(x)
+    y, got = tflow.forward_logdet(xt, logdet=True)
+    assert got.shape == (2, 9)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
+    jac = torch.func.vmap(torch.func.jacfwd(lambda p: tflow(p[None])[0]))(xt.reshape(-1, 3))
+    brute = torch.linalg.slogdet(jac)[1].reshape(2, 9)
+    np.testing.assert_allclose(got.detach().numpy(), brute.detach().numpy(), atol=1e-4)
+    np.testing.assert_array_equal(y.detach().numpy(), tflow(xt).detach().numpy())
+    assert float(got.detach().abs().max()) > 0.05
+
+
+def test_residual_logdet_is_differentiable():
+    """The log-det's gradient wrt the points and a layer's weight, against
+    the JAX package's on the same weights (rtol 1e-4)."""
+    jflow, params, state, tflow = _logdet_pair()
+    x = np.random.default_rng(4).normal(size=(12, 3)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(jflow.apply(p, state, xx, logdet=True)[1])
+
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tflow.forward_logdet(xt, logdet=True)[1].sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-6)
+    w0 = tflow.flows[0].net.layers[0].w.grad.numpy()
+    np.testing.assert_allclose(w0, np.asarray(gp[0][0]["w"]), rtol=1e-4, atol=1e-6)

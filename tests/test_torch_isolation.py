@@ -1,6 +1,8 @@
 """The port imports no JAX: every module of shwd_torch, its tools and
 chip_smoke.py."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import ast
 from pathlib import Path
 
@@ -38,5 +40,7 @@ def test_every_module_is_checked():
             "baselines.py", "profile_torch_train.py"} <= names
     assert {"ot1d.py", "spherical.py", "chart.py", "planar.py", "actnorm.py",
             "pseudo.py", "ssw_loss.py", "evaluate.py"} <= names
+    assert {"sliced_zoo.py", "pose_refine.py", "comparison.py", "flops.py",
+            "profiling.py"} <= names
     dirs = {p.parent.name for p in FILES}
     assert {"models", "data", "train", "ops", "losses", "utils", "flows"} <= dirs

@@ -7,6 +7,8 @@ imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import json
 import subprocess
 import sys
@@ -626,3 +628,55 @@ def test_ssw_value_on_the_card_matches_the_cpu(cuda, p):
     want = w(x, y, frames=frames)
     got = w(x.to(cuda), y.to(cuda), frames=frames.to(cuda)).cpu()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_refine_step_on_k3_makes_no_host_sync(cuda):
+    """Pose refinement with loss "sinkhorn" at the registration batch
+    (B=128, N=128): one step and the final per-object loss launch K3 twice
+    and never wait on the card."""
+    from shwd_torch.train.pose_refine import PoseRefineConfig, refine_poses
+
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.normal(size=(128, 128, 3)), dtype=torch.float32, device=cuda)
+    tgt = src + 0.1
+    cfg = PoseRefineConfig(loss="sinkhorn", num_steps=1)
+    refine_poses(src, tgt, cfg)              # first call: the library loads
+    torch.cuda.synchronize()
+    k0 = tp.sinkhorn_points.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = refine_poses(src, tgt, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tp.sinkhorn_points.launches == k0 + cfg.num_steps + 1
+    assert bool(torch.isfinite(res.losses).all() and torch.isfinite(res.pose_7d).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2",
+                                    "GSWD_POLY", "GSWD_POLY3", "MGSWD_POLY", "GSWD_CIRC",
+                                    "MGSWD_CIRC", "ASWD", "DSWD", "GSW_NN", "MGSW_NN"])
+def test_flow_method_step_makes_no_host_sync(cuda, method):
+    """A Flow_cube step (1200 points) of each method beside SHWD, its inner
+    Adam loops included, never waits on the card."""
+    from shwd_torch.ops.sphere_sampling import sample_cube_surface
+    from shwd_torch.train import flow_driver as fd
+
+    rng = np.random.default_rng(0)
+    src = sample_cube_surface(rng, 1200, device=cuda)
+    tgt = sample_cube_surface(rng, 1200, biased=True, device=cuda)
+    cfg = fd.FlowConfig(method=method)
+    init_state, step = fd._make_loss_step(cfg, cuda)
+    state = init_state(torch.Generator(device=cuda).manual_seed(0))
+    points = src.clone().requires_grad_(True)
+    state["opt"], state["sched"] = fd._make_point_opt(cfg, points)
+    step(points, tgt, state)             # first step: constants reach the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            loss = step(points, tgt, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(points).all())

@@ -3,6 +3,8 @@ converted weights. Inputs and weights come from the JAX package's init and
 a numpy seed; tolerances rtol 1e-4 / atol 1e-5 (f32 matrix products with
 1024- and 2048-long sums in another order)."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ minimum (ROADMAP Queue 3); ``test_circle_ot_unequal_sizes_is_exact`` holds
 the port to the exact solver on such an input.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import itertools
 
 import jax

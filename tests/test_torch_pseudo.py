@@ -11,6 +11,8 @@ solvers; rtol 1e-5, except 5e-3 for the sinkhorn gradients (dual
 differences of 1e-5 become 2e-3 in the plan at eps 5e-3).
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import functools
 
 import jax

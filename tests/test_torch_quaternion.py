@@ -4,6 +4,8 @@ Inputs come from a numpy seed; every comparison is rtol 1e-5 / atol 1e-6
 (the same f32 formulas, only the order of a few sums may differ).
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

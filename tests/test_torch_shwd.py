@@ -1,5 +1,7 @@
 """Port parity: one SHWD criterion call (hybrid solver) vs shwd_tpu."""
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import copy
 import functools
 

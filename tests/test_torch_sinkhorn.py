@@ -5,6 +5,8 @@ interpret mode. The CUDA kernel itself is held against the plain version
 on the card in test_torch_kernels_gpu.py.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

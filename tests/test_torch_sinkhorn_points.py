@@ -6,6 +6,8 @@ wrapper runs for CPU tensors); the kernel itself is held against it on the
 card in test_torch_kernels_gpu.py.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

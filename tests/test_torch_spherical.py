@@ -6,6 +6,8 @@ the port's own ``stiefel_frames`` is checked for orthonormality and its
 law's invariants.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,8 @@ that shifts the final value by up to 5e-5 (relative) while the value at
 equal parameters still agrees to 6e-7.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

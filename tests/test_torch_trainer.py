@@ -7,6 +7,8 @@ weights (the JAX init, converted); never the same seed. PCRNet runs at its
 full widths on B=4 clouds of 32 points.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import functools
 import json

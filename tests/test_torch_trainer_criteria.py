@@ -10,6 +10,8 @@ that the JAX criterion draws from its key are recomputed from the key
 splits and handed to the port.
 """
 
+import torch_cpu  # noqa: F401  (first: one intra-op thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
