@@ -54,6 +54,19 @@ Phases, each printing one JSON line:
      one full pass each equal to the one-pass curve, and the final state
      giving the same per-sample errors, bit for bit, from memory and from
      a checkpoint reloaded into a fresh state;
+  6a. the parallel layer at world size 1 over NCCL (data_parallel): the
+     sinkhorn run's config with mesh_data=1 for 4 epochs, whose history
+     must equal that run's first 4 epochs (rtol 1e-4), K3 counted; ms
+     per train step with and without the mesh, in turns; the collectives
+     of one train step; the sharded SSW, transport and distributed SSW
+     against their unsharded values, sharded refinement (sinkhorn, K3)
+     against refine_poses, and the scaling harness at one card; then the
+     sweep runner (sweep: a zip matrix of two 2-epoch experiments in
+     process, sinkhorn on K3 and hybrid on K2, one in a child process
+     pinned with CUDA_VISIBLE_DEVICES=0, and run_eval_sweep over the
+     three, every eval_summary.json finite) and the HPO study (hpo: three
+     2-epoch cd trials stored in jsonl, replayed by a re-created study
+     that runs a fourth; the cd criterion launches no kernel);
   6b. pose refinement: the sinkhorn run's best-rotation PCRNet on the
      first train batch, polished by refine_model_output with the
      "sinkhorn" loss (K3 num_steps + 1 times a call), "cd" and "ssw", 100
@@ -76,7 +89,9 @@ Phases, each printing one JSON line:
      whose nodes must be exactly one kernel (K1-K4);
 then the kernel table ({"kernels": [...]}; "launches" counts the wrapper's
 calls on the main path, "launches_pseudo" and "launches_refine" K3's on
-the pseudo_w_cos run and the sinkhorn refinement, "launches_cd_twins" K4's
+the pseudo_w_cos run and the sinkhorn refinement, "launches_data_parallel"
+K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
+"launches_cd_twins" K4's
 on the twins, "launches_per_call" is phase 8's count), the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. Without CUDA, or without the
@@ -91,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,7 +123,8 @@ REG_B, REG_N = 128, 128
 REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
 REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
-              "ssw_1024": 3}
+              "ssw_1024": 3, "data_parallel": 4, "data_parallel_ab": 9, "sweep": 2,
+              "hpo": 2}
 SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # Of the seeds 0, 1, 2 and 1234 on an H100, the first three bring the model
 # within 40 epochs to the plateau the JAX trainer reaches on the same bank
@@ -904,6 +921,203 @@ def phase_evaluate(dev, cfg, res, log_dir):
           "recount": recount, "reload_bitwise_equal": True})
 
 
+def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
+    """The parallel layer at world size 1 over NCCL (one card): Trainer.fit
+    with mesh_data=1 for the first 4 epochs of phase registration's sinkhorn
+    run (K3), whose history it must match (rtol 1e-4); ms per train step
+    with and without the mesh, two 9-epoch fits each, in turns; one train
+    step's collectives; the sharded SSW, transport and distributed SSW against
+    their unsharded port functions on the registration batch; sharded
+    refinement (sinkhorn, K3) against refine_poses; the scaling harness at
+    D = 1."""
+    import dataclasses
+    import torch.distributed as dist
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.ops import sinkhorn_fused as sp
+    from shwd_torch.ops.costs import cost_matrix
+    from shwd_torch.ops.sinkhorn import emd2_approx
+    from shwd_torch.ops.spherical import sliced_cost_sphere, stiefel_frames
+    from shwd_torch.parallel import (make_dist_ssw, make_mesh, make_points_mesh,
+                                     make_sharded_ssw, make_sharded_transport,
+                                     measure_scaling, sharded_refine_poses)
+    from shwd_torch.parallel import mesh as pmesh
+    from shwd_torch.train.pose_refine import PoseRefineConfig, refine_poses
+    from shwd_torch.train.trainer import _mean_subtract
+    rank_dev = pmesh.initialize_distributed()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == backend and dist.get_world_size() == 1
+          and rank_dev == dev, f"data_parallel: group {dist.get_backend()}, "
+          f"world {dist.get_world_size()}, device {rank_dev}")
+    epochs = REG_EPOCHS["data_parallel"]
+    cfg = dataclasses.replace(sink_cfg, experiment="data_parallel", num_epochs=epochs,
+                              mesh_data=1)
+    pmesh.collective_calls = 0
+    run, trainer, res, ds = run_registration(dev, cfg)
+    fit_collectives = pmesh.collective_calls
+    check(trainer.mesh is not None and trainer._n_data == 1,
+          "data_parallel: the trainer built no mesh")
+    want_k3 = 2 * run["train_steps"] + run["eval_batches"]
+    check(run["launches"]["sinkhorn_points"] == want_k3,
+          f"data_parallel: K3 launched {run['launches']['sinkhorn_points']} times, "
+          f"expected {want_k3}")
+    keys = ("train_loss", "val_loss", "rot_error", "trans_error")
+    ref = sink_res["history"][:epochs]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(res["history"], ref) for k in keys)
+    bitwise = all(a[k] == b[k] for a, b in zip(res["history"], ref) for k in keys)
+    check(worst <= 1e-4, f"data_parallel: history off the un-meshed run by {worst}")
+    # ms per train step with and without the mesh, in turns in this process
+    # (phase registration's early epochs ran on a colder host)
+    turns = {"unmeshed": [], "meshed": []}
+    for label in ("unmeshed", "meshed", "unmeshed", "meshed"):
+        ab_cfg = dataclasses.replace(cfg, experiment=f"data_parallel_{label}",
+                                     num_epochs=REG_EPOCHS["data_parallel_ab"],
+                                     mesh_data=1 if label == "meshed" else None)
+        ab, *_ = run_registration(dev, ab_cfg)
+        turns[label] += ab["ms_per_train_step_by_epoch"]
+    unmeshed_ms = float(np.mean(turns["unmeshed"]))
+    meshed_ms = float(np.mean(turns["meshed"]))
+    # one train step's collectives (the gradient bucket and phi's, 2 here)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = next(ds.batches(gen, np.arange(REG_B), REG_B, shuffle=False))
+    pmesh.collective_calls = 0
+    with pmesh.data_parallel(trainer._data_group):
+        trainer._train_step(res["state"], trainer._rows(batch))
+    step_collectives = pmesh.collective_calls
+
+    # the sharded losses against their unsharded port functions
+    mesh = make_mesh(data=1, slices=1, device=dev)
+    source, target, _ = _mean_subtract(batch)
+    frames = stiefel_frames(torch.Generator(device=dev).manual_seed(3), 100, device=dev)
+    checks = {}
+    ssw = make_sharded_ssw(mesh, p=2)(source, target, frames)
+    want = torch.mean(sliced_cost_sphere(source, target, frames, p=2))
+    checks["sharded_ssw"] = abs(float(ssw) - float(want)) / abs(float(want))
+    tr = make_sharded_transport(mesh, cost="lp", p=2.0)(source, target)
+    want = torch.mean(torch.clamp_min(emd2_approx(cost_matrix(source, target, "lp", 2.0)),
+                                      1e-30) ** 0.5)
+    checks["sharded_transport"] = abs(float(tr) - float(want)) / abs(float(want))
+    dssw = make_dist_ssw(make_points_mesh(points=1, data=1, device=dev))(source, target,
+                                                                         frames)
+    want = torch.mean(sliced_cost_sphere(source, target, frames, p=1))
+    checks["dist_ssw"] = abs(float(dssw) - float(want)) / abs(float(want))
+    for name, err in checks.items():
+        check(err <= 1e-5, f"data_parallel: {name} off its unsharded value by {err}")
+    rcfg = PoseRefineConfig(loss="sinkhorn")
+    sp.sinkhorn_points.launches = 0
+    t0 = time.perf_counter()
+    sharded = sharded_refine_poses(mesh, source, target, rcfg)
+    torch.cuda.synchronize(dev)
+    refine_s = time.perf_counter() - t0
+    refine_k3 = sp.sinkhorn_points.launches
+    whole = refine_poses(source, target, rcfg)
+    refine_err = float((sharded.pose_7d - whole.pose_7d).abs().max())
+    check(refine_k3 == rcfg.num_steps + 1,
+          f"data_parallel: sharded refinement launched K3 {refine_k3} times")
+    check(torch.allclose(sharded.pose_7d, whole.pose_7d, rtol=1e-4, atol=1e-5),
+          f"data_parallel: sharded refinement off refine_poses by {refine_err}")
+    t0 = time.perf_counter()
+    (point,) = measure_scaling([1], per_device_batch=REG_B, n_points=REG_N,
+                               verbose=False, device=dev)
+    scaling_s = time.perf_counter() - t0
+    check(point.clouds_per_second > 0 and point.efficiency == 1.0,
+          f"data_parallel: scaling point {point}")
+    emit({"phase": "data_parallel", "backend": dist.get_backend(),
+          "world_size": dist.get_world_size(), "mesh": "data=1, slices=1",
+          "run": run, "history_max_rel_diff_vs_unmeshed": worst,
+          "history_bitwise_equal": bitwise,
+          "ms_per_train_step_in_turns": {"meshed": meshed_ms, "unmeshed": unmeshed_ms,
+                                         "epochs": turns},
+          "collectives_in_fit": fit_collectives,
+          "collectives_per_train_step": step_collectives,
+          "sharded_rel_err": checks, "refine_k3_launches": refine_k3,
+          "refine_seconds": refine_s, "refine_max_abs_diff": refine_err,
+          "scaling": dataclasses.asdict(point), "scaling_seconds": scaling_s})
+    dist.destroy_process_group()
+    return run["launches"]["sinkhorn_points"] + refine_k3
+
+
+def phase_sweep(dev, log_dir):
+    """The sweep runner: a zip matrix of two 2-epoch experiments in this
+    process (w_cos on sinkhorn, K3, and on hybrid, K2), one experiment in a
+    child process pinned with CUDA_VISIBLE_DEVICES=0, then run_eval_sweep
+    over all three; every eval_summary.json must be finite."""
+    import json
+    from shwd_torch.train.runner import matrix_to_configs, run_eval_sweep, run_sweep
+    base = registration_config(log_dir, "sinkhorn", num_epochs=REG_EPOCHS["sweep"])
+    matrix = {"experiment": ["sweep_sinkhorn", "sweep_hybrid"],
+              "shwd.transport.solver": ["sinkhorn", "hybrid"]}
+    configs = matrix_to_configs(matrix, base=base)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    results = run_sweep(configs, verbose=False)
+    torch.cuda.synchronize(dev)
+    inprocess_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(launches["sinkhorn_points"] > 0 and launches["auction_assignment"] > 0,
+          f"sweep: launches {launches}")
+    check(all(len(r["history"]) == REG_EPOCHS["sweep"] for r in results),
+          "sweep: an in-process experiment did not run its epochs")
+    child = registration_config(log_dir, "sinkhorn", num_epochs=REG_EPOCHS["sweep"],
+                                experiment="sweep_subprocess")
+    t0 = time.perf_counter()
+    (child_res,) = run_sweep([child], mode="subprocess",
+                             device_env=[{"CUDA_VISIBLE_DEVICES": "0"}], verbose=False)
+    subprocess_s = time.perf_counter() - t0
+    check(child_res.get("epochs") == REG_EPOCHS["sweep"],
+          f"sweep: the child process returned {child_res}")
+    names = [c.experiment for c in configs] + [child.experiment]
+    t0 = time.perf_counter()
+    evals = run_eval_sweep(names, log_dir=str(log_dir))
+    eval_s = time.perf_counter() - t0
+    for name in names:
+        summary = json.loads((Path(log_dir) / name / "eval_summary.json").read_text())
+        check(summary == evals[name] and all(np.isfinite(v) for v in summary.values()),
+              f"sweep: eval_summary.json of {name}: {summary}")
+    emit({"phase": "sweep", "experiments": names, "inprocess_seconds": inprocess_s,
+          "subprocess_seconds": subprocess_s, "eval_seconds": eval_s,
+          "launches": launches, "child_epochs": child_res["epochs"],
+          "child_best_rot": child_res["best"]["rot"], "eval": evals})
+    return launches
+
+
+def phase_hpo(dev, log_dir):
+    """The HPO study: 3 trials of registration_hpo_objective (cd, 2 epochs
+    each, the reference's Chamfer study) with jsonl storage; the study
+    re-created from its file replays the 3 trials and runs a 4th. The cd
+    criterion is the dense differentiable Chamfer in both passes, as in the
+    JAX package: no kernel may launch."""
+    from shwd_torch.train.hpo import create_study, registration_hpo_objective
+    storage = Path(log_dir) / "hpo" / "study.jsonl"
+    base = registration_config(log_dir, "cd", "cd", experiment="hpo")
+    objective = registration_hpo_objective(base, num_epochs=REG_EPOCHS["hpo"])
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    study = create_study("hpo", storage=storage, seed=0)
+    study.optimize(objective, n_trials=3, verbose=False)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    resumed = create_study("hpo", storage=storage, seed=0)
+    check([t["params"] for t in resumed.trials] == [t["params"] for t in study.trials]
+          and len(resumed.trials) == 3, "hpo: the resumed study did not replay 3 trials")
+    t0 = time.perf_counter()
+    resumed.optimize(objective, n_trials=4, verbose=False)
+    fourth_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    values = [t["value"] for t in resumed.trials]
+    check(len(resumed.trials) == 4 and all(t["state"] == "complete" for t in resumed.trials)
+          and all(np.isfinite(values)), f"hpo: trials {resumed.trials}")
+    check(not any(launches.values()), f"hpo: launches {launches}")
+    emit({"phase": "hpo", "trials": len(resumed.trials), "values": values,
+          "params": [t["params"] for t in resumed.trials],
+          "best_value": resumed.best_value, "seconds_first_three": first_s,
+          "seconds_fourth": fourth_s, "launches": launches})
+
+
 def check_falling_rotation(label, run):
     check(run["val_rot_error_last"] < run["val_rot_error_first"],
           f"registration {label}: val rotation error did not fall "
@@ -1272,7 +1486,12 @@ def main() -> int:
         k2["launches_registration"] = reg_launches["auction_assignment"]
         k3["launches"] = reg_launches["sinkhorn_points"]
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
+        k3["launches_data_parallel"] = phase_data_parallel(dev, log_dir, sink_cfg, sink_res)
         del sink_res
+        sweep_launches = phase_sweep(dev, log_dir)
+        k3["launches_sweep"] = sweep_launches["sinkhorn_points"]
+        k2["launches_sweep"] = sweep_launches["auction_assignment"]
+        phase_hpo(dev, log_dir)
         k3["launches_refine"] = phase_pose_refine(dev, sink_cfg, log_dir)
         k3["launches_pseudo"] = phase_registration_pseudo(dev, log_dir)
         phase_registration_max_ssw(dev, log_dir)

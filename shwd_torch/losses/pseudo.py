@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.spherical import stiefel_frames
+from ..parallel.mesh import all_reduce
 from .transport import TransportConfig, make_transport
 
 COMBINES = ("max", "mean", "softmax")
@@ -74,7 +75,8 @@ class PseudoSHWDLoss:
             vals.append(self.transport(sx, sy, frames=frames))
             sxs.append(sx)
             sys.append(sy)
-        vals = torch.stack(vals)
+        # a data-parallel fit combines each flow's value over the whole batch
+        vals = all_reduce(torch.stack(vals), "sum" if tp.reduce == "sum" else "mean")
         c = self.cfg.combine
         if c == "max":
             value = torch.max(vals)

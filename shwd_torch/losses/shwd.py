@@ -25,6 +25,7 @@ import torch
 from ..flows.base import FlowChain
 from ..ops.auction import hybrid_assignment_warm
 from ..ops.costs import cost_matrix
+from ..parallel.mesh import reduce_gradients
 from ..utils.optim import torch_adam
 from .transport import TransportConfig, make_transport, reduce_batch
 
@@ -152,6 +153,9 @@ class SHWDLoss:
             obj, warm = self._inner_objective(state.phi, xd, yd, state.lam, warm,
                                               state.generator)
             obj.backward()
+            # a data-parallel fit: the batch mean's gradient is the ranks'
+            # mean, or phi drifts apart across ranks
+            reduce_gradients(state.phi.parameters(), "mean")
             state.opt.step()
             if cfg.power_iter_per_step > 0:
                 state.phi.update_state(cfg.power_iter_per_step)

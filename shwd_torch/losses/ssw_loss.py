@@ -22,6 +22,7 @@ import torch
 
 from ..flows.base import Flow
 from ..ops.spherical import sliced_cost_sphere, stiefel_frames
+from ..parallel.mesh import group_rank, group_size, reduce_gradients
 from ..utils.optim import torch_adam
 
 
@@ -78,9 +79,16 @@ class MaxSSWLoss:
                                 x.shape[-1], device=x.device)
         idx = None
         if minibatch > 0:
-            # a uniform subset without replacement, made on the device
-            keys = torch.rand(x.shape[0], generator=state.generator, device=x.device)
+            # a uniform subset without replacement, made on the device. In a
+            # data-parallel fit the keys are drawn for the global batch on
+            # every rank, and a rank keeps the picked rows it holds
+            b = x.shape[0]
+            keys = torch.rand(b * group_size(), generator=state.generator,
+                              device=x.device)
             idx = torch.argsort(keys)[:minibatch]
+            if group_size() > 1:
+                lo = group_rank() * b
+                idx = idx[(idx >= lo) & (idx < lo + b)] - lo
         return frames, idx
 
     def _ssw_sum(self, phi: Flow, x, y, frames):
@@ -101,6 +109,8 @@ class MaxSSWLoss:
                 xi, yi = (xd, yd) if idx is None else (xd[idx], yd[idx])
                 state.opt.zero_grad(set_to_none=True)
                 (-self._ssw_sum(state.phi, xi, yi, frames)[0]).backward()
+                # a data-parallel fit: the sum's gradient adds up over ranks
+                reduce_gradients(state.phi.parameters(), "sum")
                 state.opt.step()
                 if cfg.power_iter_per_step > 0:
                     state.phi.update_state(cfg.power_iter_per_step)

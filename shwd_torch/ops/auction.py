@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from .. import _kernels
+from ..parallel.mesh import group_max, group_min
 from .sinkhorn import emd2_approx
 from .sinkhorn_kernels import emd2_warmup, warmup_supported
 
@@ -295,7 +296,8 @@ def _sinkhorn_warm_prices(cost, sink_eps, sink_iters, sink_scales):
 def _hybrid_eps0(cost: torch.Tensor, eps_final: float) -> torch.Tensor:
     # well below the cost range (the warm prices carry the coarse structure)
     # but high enough to repair unconverged duals; range over the whole batch
-    c_range = torch.clamp_min(cost.max() - cost.min(), 1e-12)
+    # (under a data-parallel fit, over every rank's block of the batch)
+    c_range = torch.clamp_min(group_max(cost.max()) - group_min(cost.min()), 1e-12)
     return torch.clamp_min(c_range * 1e-4, eps_final * 10.0)
 
 

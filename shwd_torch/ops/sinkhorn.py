@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import group_max
+
 
 def _logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
     m = torch.amax(x, dim=dim, keepdim=True).detach()
@@ -68,7 +70,8 @@ def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
     With ``return_potentials`` returns (val, f, g).
     """
     a, b, log_a, log_b = _uniform_logs(cost, a, b)
-    eps0 = torch.clamp_min(torch.amax(torch.abs(cost)), 1e-30).detach()
+    # under a data-parallel fit, the max over every rank's block of the batch
+    eps0 = torch.clamp_min(group_max(torch.amax(torch.abs(cost))), 1e-30).detach()
     ratios = torch.linspace(0.0, 1.0, num_scales, dtype=cost.dtype,
                             device=cost.device)
     # log(eps) as a Python number: a device tensor made from it would be a

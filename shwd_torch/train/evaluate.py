@@ -69,7 +69,9 @@ def evaluate(cfg: TrainConfig, state=None, checkpoint: Optional[str] = None,
     by the trainer, on the card unless ``device`` names the CPU. Batches
     are never dropped (a split smaller than the batch still evaluates);
     poses and noise are drawn from a generator seeded ``cfg.seed + 999``."""
-    trainer = Trainer(cfg, device=device)
+    # one process evaluates the whole split, whatever mesh the run trained on
+    trainer = Trainer(dataclasses.replace(cfg, mesh_data=None, mesh_slices=1),
+                      device=device)
     dev = trainer.device
     if state is None:
         if not checkpoint:

@@ -15,7 +15,18 @@ How the port differs from the JAX package's functional trainer:
   objective alone;
 - a train step makes no host sync: the epoch's loss is accumulated on the
   device and read once per epoch (every step only under ``nan_guard``);
-- one epoch loop (the JAX package's fused epoch is a jit device).
+- one epoch loop (the JAX package's fused epoch is a jit device);
+- data parallel (``mesh_data``/``mesh_slices``) runs one process per
+  device, each on the same seed: every rank makes the same global batch and
+  takes its rows, and the model's gradients are averaged over the ``data``
+  group before the Adam step (no DDP wrapper: the step keeps
+  ``torch.autograd.grad``). Where the single-device value is batch-wide
+  (Sinkhorn's eps0, the auction's cost range, phi's inner gradients, the
+  max-SSW minibatch, the epoch's metrics), the collective is explicit: the
+  fit makes the data group active (``parallel.mesh.data_parallel``) and
+  those ops reduce over it. The ``slices`` axis holds replicas, as in the
+  JAX trainer. Only rank 0 writes files; every rank returns the same
+  history.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from ..losses import (MaxSSWLoss, PseudoSHWDConfig, PseudoSHWDLoss, SHWDLoss,
                       chamfer_criterion, make_sinkhorn_criterion)
 from ..models import PCRNet
 from ..ops.quaternion import rotation_error_deg, translation_error
+from ..parallel import mesh as pmesh
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_payload
 from ..utils.logging import RunLogger
 from ..utils.optim import torch_adam
@@ -105,16 +117,43 @@ class Trainer:
     names the CPU."""
 
     def __init__(self, cfg: TrainConfig,
-                 device: str | torch.device | None = None):
-        if cfg.mesh_data is not None or cfg.mesh_slices > 1:
-            raise NotImplementedError(
-                "multi-device training is not ported yet: ROADMAP Queue 1 "
-                "item 14 (the parallel layer)")
+                 device: str | torch.device | None = None, mesh=None):
+        """``mesh`` (a ``parallel.mesh.make_mesh`` mesh) replaces the one
+        that ``cfg.mesh_data``/``cfg.mesh_slices`` would build."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.crit_init, self.crit_apply = build_criterion(cfg)
         self._early_stop_enabled = (cfg.criterion in ("w_cos", "w1_cos")
                                     and cfg.shwd.early_stop_strikes > 0)
+        # max-SSW's loss is a sum over the batch: ranks add up, not average
+        self._reduce = "sum" if cfg.criterion == "max_ssw" else "mean"
+        self.mesh, self._data_group = mesh, None
+        if mesh is None and (cfg.mesh_data is not None or cfg.mesh_slices > 1):
+            self.mesh = pmesh.make_mesh(cfg.mesh_data, cfg.mesh_slices, self.device)
+        self._n_data = pmesh.axis_size(self.mesh, "data")
+        self._r_data = pmesh.axis_rank(self.mesh, "data")
+        if self.mesh is not None:
+            self._data_group = self.mesh.get_group("data")
+            if cfg.batch_size % self._n_data != 0:
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must divide evenly over the "
+                    f"mesh 'data' axis ({self._n_data}); a training batch that "
+                    "falls back to replication would silently lose all data "
+                    "parallelism (the fallback exists only for eval's "
+                    "drop_remainder=False tail)")
+            if (cfg.criterion in ("w_cos", "w1_cos")
+                    and cfg.shwd.transport.reduce != "mean"):
+                raise ValueError("data-parallel w_cos needs the transport's "
+                                 "batch mean (reduce='mean')")
+        self._writer = self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _rows(self, batch: RegistrationBatch) -> RegistrationBatch:
+        """This rank's rows of a global batch (the batch itself without a
+        mesh)."""
+        if self.mesh is None:
+            return batch
+        return RegistrationBatch(*(pmesh.shard(t, self._n_data, self._r_data)
+                                   for t in batch))
 
     # -- steps ---------------------------------------------------------------
 
@@ -138,6 +177,8 @@ class Trainer:
         grads = torch.autograd.grad(loss, params)
         for p, g in zip(params, grads):
             p.grad = g
+        # the mean (or sum) over the active data group; nothing without one
+        pmesh.reduce_gradients(params, self._reduce)
         state.opt.step()
         return loss.detach()
 
@@ -161,21 +202,24 @@ class Trainer:
         for batch in dataset.batches(generator, indices, self.cfg.batch_size,
                                      shuffle=True, rng=rng):
             pre = state_payload(state) if self.cfg.nan_guard else None
-            loss = self._train_step(state, batch)
-            if self.cfg.nan_guard and not np.isfinite(float(loss)):
-                self._dump_nan_forensics(pre, state.epoch, batch, float(loss))
+            loss = self._train_step(state, self._rows(batch))
+            if self.cfg.nan_guard:
+                value = float(pmesh.reduce_values(loss, self._reduce))
+                if not np.isfinite(value):
+                    self._dump_nan_forensics(pre, state.epoch, batch, value)
             total = total + loss
             count += 1
-        return state, float(total) / max(count, 1)
+        return state, float(pmesh.reduce_values(total, self._reduce)) / max(count, 1)
 
     def _dump_nan_forensics(self, pre_state: dict, epoch: int, batch, loss):
         """Persist the offending inputs and the pre-step train state (incl.
         phi and its optimizer), then raise."""
         dump_dir = Path(self.cfg.log_dir) / self.cfg.experiment / "nan_dump"
-        dump_dir.mkdir(parents=True, exist_ok=True)
-        np.savez(dump_dir / "batch.npz",
-                 **{k: v.detach().cpu().numpy() for k, v in batch._asdict().items()})
-        save_checkpoint(dump_dir / "state_pre_step", pre_state, epoch)
+        if self._writer:
+            dump_dir.mkdir(parents=True, exist_ok=True)
+            np.savez(dump_dir / "batch.npz",
+                     **{k: v.detach().cpu().numpy() for k, v in batch._asdict().items()})
+            save_checkpoint(dump_dir / "state_pre_step", pre_state, epoch)
         raise FloatingPointError(
             f"non-finite train loss ({loss}); batch and pre-step state "
             f"dumped to {dump_dir}")
@@ -185,15 +229,28 @@ class Trainer:
 
         Uses drop_remainder=False so a val split smaller than batch_size
         still evaluates; raises rather than silently returning 0.0 when
-        there is nothing to evaluate.
+        there is nothing to evaluate. Under a mesh, a batch that divides over
+        ``data`` is split and reduced at the end of the pass; one that does
+        not is computed whole on every rank (the JAX package's replicated
+        fallback).
         """
         sums = torch.zeros(3, device=self.device)
+        split = torch.zeros(3, device=self.device)
         n_items = 0
         for batch in dataset.batches(generator, indices, self.cfg.batch_size,
                                      shuffle=False, drop_remainder=False):
             b = batch.source.shape[0]
-            sums = sums + self._eval_step(state, batch) * b
+            if self.mesh is not None and b % self._n_data == 0:
+                split = split + self._eval_step(state, self._rows(batch)) * b
+            else:
+                with pmesh.data_parallel(None):
+                    sums = sums + self._eval_step(state, batch) * b
             n_items += b
+        if self.mesh is not None:
+            split = pmesh.reduce_values(split, "mean", self._data_group)
+            if self._reduce == "sum":       # a summed loss adds up over ranks
+                split[0] *= self._n_data
+            sums = sums + split
         if n_items == 0:
             raise ValueError(
                 "validation set produced no batches: check val_split / "
@@ -210,9 +267,12 @@ class Trainer:
         cfg = self.cfg
         log_dir = Path(cfg.log_dir) / cfg.experiment
         models_dir = log_dir / "models"
-        models_dir.mkdir(parents=True, exist_ok=True)
-        cfg.save(log_dir / "config.json")
-        logger = RunLogger(log_dir)
+        logger = None
+        if self._writer:
+            models_dir.mkdir(parents=True, exist_ok=True)
+            cfg.save(log_dir / "config.json")
+            logger = RunLogger(log_dir)
+        verbose = verbose and self._writer
 
         rng = np.random.default_rng(cfg.seed)
         gen_init = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -262,6 +322,9 @@ class Trainer:
             term_installed = True
         except ValueError:          # not the main thread
             old_term, term_installed = None, False
+        # the ops' batch-wide reductions see the data group for the whole fit
+        group_scope = pmesh.data_parallel(self._data_group)
+        group_scope.__enter__()
         try:
             for epoch in range(start_epoch, cfg.num_epochs):
                 t0 = time.perf_counter()
@@ -288,6 +351,8 @@ class Trainer:
                 for fam, value in marks.items():
                     if value < best[fam]:
                         best[fam] = value
+                        if not self._writer:
+                            continue
                         if payload is None:
                             payload = state_payload(state)
                         pending_snaps[fam] = (payload, epoch + 1)
@@ -303,15 +368,18 @@ class Trainer:
                            train_seconds=train_dt,
                            train_steps=len(train_idx) // cfg.batch_size)
                 history.append(row)
-                logger.log(row)
+                if logger is not None:
+                    logger.log(row)
                 if verbose:
                     print(f"EPOCH:: {epoch+1}, Training Loss: "
                           f"{train_loss*100:.4f}, Val Loss: {val_loss*100:.4f},"
                           f" Rot error: {rot_err:.3f},"
                           f" Trans error: {trans_err:.4f}, Time: {dt:.2f}s")
         finally:
+            group_scope.__exit__(None, None, None)
             flush_snaps()
-            logger.close()
+            if logger is not None:
+                logger.close()
             if term_installed:
                 # restore keyed on "we installed", not "old was non-None"
                 # (signal.signal returns None when the previous disposition

@@ -1,5 +1,6 @@
-"""The port imports no JAX: every module of shwd_torch, its tools and
-chip_smoke.py."""
+"""The port imports no JAX: every module of shwd_torch, its tools, the
+examples written for it, chip_smoke.py, and the helper that the parallel
+tests' spawned processes import."""
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
 
@@ -11,7 +12,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "shwd_tpu"}
 FILES = (sorted((ROOT / "shwd_torch").rglob("*.py"))
-         + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"])
+         + sorted((ROOT / "tools").glob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py"))
+         + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist.py"])
 
 
 def _imports(path):
@@ -42,5 +45,9 @@ def test_every_module_is_checked():
             "pseudo.py", "ssw_loss.py", "evaluate.py"} <= names
     assert {"sliced_zoo.py", "pose_refine.py", "comparison.py", "flops.py",
             "profiling.py"} <= names
+    assert {"runner.py", "hpo.py", "mesh.py", "sharded_ops.py", "dist_sort.py",
+            "scaling.py", "flow_cube_torch.py", "train_registration_torch.py",
+            "metric_sweep_torch.py", "torch_dist.py"} <= names
     dirs = {p.parent.name for p in FILES}
-    assert {"models", "data", "train", "ops", "losses", "utils", "flows"} <= dirs
+    assert {"models", "data", "train", "ops", "losses", "utils", "flows",
+            "parallel", "examples"} <= dirs

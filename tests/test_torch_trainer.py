@@ -452,12 +452,16 @@ def test_config_roundtrip_and_jax_written_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_data=2), "Queue 1 item 14"),
-    (dict(mesh_slices=2), "Queue 1 item 14"),
+    (dict(mesh_data=2), "a 2x1 mesh needs 2 ranks; 1 given of a world of 1"),
+    (dict(mesh_slices=2), "a 0x2 mesh needs 0 ranks; 1 given of a world of 1"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The mesh options are ported (``tests/test_torch_trainer_parallel.py``);
+    a mesh larger than this one-process world raises before any process
+    group is made."""
+    with pytest.raises(ValueError, match=match):
         tt.Trainer(tt.TrainConfig(log_dir=str(tmp_path), **kw), device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_trainer_defaults_to_the_card(tmp_path):
