@@ -26,9 +26,14 @@ Phases, each printing one JSON line:
      bits on two calls;
   4. slice 1: the Flow_cube SHWD gradient flow through
      shwd_torch.train.flow_driver.run_flow (1200 points, 5 Residual
-     layers, hybrid exact-EMD solver, 400 iterations), with the kernels'
-     launch counters reset just before and read just after; final exact
-     W2 must be <= 1e-3. It runs right after the build, before any kernel
+     layers, hybrid exact-EMD solver, 400 iterations), fused: one step
+     captured as a CUDA graph and replayed (K1 once and K2 twice a step,
+     counted as graph nodes times replays), with the kernels' launch
+     counters reset just before and read just after; final exact W2 must
+     be <= 1e-3, and 50 iterations of the per-step loop from the same
+     start must give the fused run's points at iteration 50; ms/iter of
+     both, the graph's kernel nodes and the idle share of one replayed
+     step. It runs right after the build, before any kernel
      is loaded: its first interval shows that run_flow loads the kernels
      and warms up outside its timed window. Then a 20-iteration run of the
      same flow with eval_metric="cd", which records the tiled Chamfer (K4)
@@ -36,14 +41,19 @@ Phases, each printing one JSON line:
      zoo, SSW, Chamfer, entropic W2) at the same width, 400 iterations
      each, W2 every 50, held to the JAX package's rows in
      benchmarks/results_cube.json (within 3x, and below the start where
-     the row ends below it), and the Chamfer-metric twins of SWD, ASWD,
-     SSWD and CD, 100 iterations each on K4;
+     the row ends below it), each fused method's points at iteration 50
+     equal to 50 per-step iterations', and the Chamfer-metric twins of
+     SWD, ASWD, SSWD and CD, 100 iterations each on K4;
   5. slice 2: the W_COS registration trainer, shwd_torch.train.Trainer.fit
      at B=128, N=M=128, full-width PCRNet, 3 Residual layers, on the
-     procedural shape bank: 40 epochs with solver="sinkhorn" (K3 twice per
-     train step, once per eval batch), then 4 epochs each with
+     procedural shape bank, fused (fused_epoch, the default: the train
+     step and each eval batch shape captured as CUDA graphs and replayed):
+     40 epochs with solver="sinkhorn" (K3 twice per train step, once per
+     eval batch, as graph nodes), then 4 epochs each with
      solver="hybrid" (K2) and criterion="cd" (the dense differentiable
-     Chamfer, no kernel); counters reset before and read after each run;
+     Chamfer, no kernel); counters reset before and read after each run,
+     where each graph's nodes times its replays and its warm-up run must
+     account for every launch;
      losses and errors must be finite, the best checkpoints must load
      back, and over the sinkhorn run the train loss and the validation
      loss must fall and the validation rotation error must end on the
@@ -82,13 +92,20 @@ Phases, each printing one JSON line:
      ssw solver (geodesic, p = 2, 100 projections) at N=M=1024, 3 epochs;
      each with its ms per step, device launches and busy ms of one
      profiled step, and peak memory;
+  7a. fused against per-step (fused_vs_per_step): for w_cos/sinkhorn,
+     w_cos/hybrid, cd and pseudo_w_cos, 5-epoch fits with fused_epoch
+     False and True in turns, each held to the fused run's first 4 epochs
+     (rtol 1e-4), ms per train step of each path with quartiles, the
+     train graph's kernel nodes and the idle share of one replayed step;
   7b. the metric sweeps on the 64 test shapes: rotation 0-90 deg (W
      rises with the angle) and translation 0-1 (W rises, within 10 % of
      the magnitude);
   8. launches per call: one call of each wrapper captured in a CUDA graph,
      whose nodes must be exactly one kernel (K1-K4);
-then the kernel table ({"kernels": [...]}; "launches" counts the wrapper's
-calls on the main path, "launches_pseudo" and "launches_refine" K3's on
+then the kernel table ({"kernels": [...]}; "launches" counts the kernel's
+launches on the main path, each wrapper call once and, on a fused path, each
+graph replay once per node of that kernel; "launches_pseudo" and
+"launches_refine" K3's on
 the pseudo_w_cos run and the sinkhorn refinement, "launches_data_parallel"
 K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 "launches_cd_twins" K4's
@@ -124,7 +141,8 @@ REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
 REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
               "ssw_1024": 3, "data_parallel": 4, "data_parallel_ab": 9, "sweep": 2,
-              "hpo": 2}
+              "hpo": 2, "turns": 5}
+HELD_EPOCHS = 4                   # the per-step fits are held to the fused runs' first 4
 SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # Of the seeds 0, 1, 2 and 1234 on an H100, the first three bring the model
 # within 40 epochs to the plateau the JAX trainer reaches on the same bank
@@ -178,6 +196,51 @@ def device_kernels(fn) -> list[tuple[str, float]]:
             and not getattr(ev, "is_user_annotation", False)
             and "#" not in ev.name
             and not ev.name.startswith(("Memcpy", "Memset"))]
+
+
+def quartiles(values) -> list[float]:
+    return [float(q) for q in np.percentile(np.asarray(values, dtype=float), [25, 50, 75])]
+
+
+def graph_launches(graphs: list[dict], kernel: str) -> int:
+    """The launches of ``kernel`` that a fit's or a flow's step graphs made:
+    its nodes in each graph times (replays + the one eager warm-up run)."""
+    return sum(g["nodes_by_kernel"].get(kernel, 0) * (g["replays"] + 1) for g in graphs)
+
+
+def replay_profile(graph, args=(), reps: int = 20) -> dict:
+    """One captured step replayed: host ms per replay (issued and waited
+    for, the median of ``reps``), the device's ms per replay between two
+    CUDA events (the graph's span on the stream, gaps between its nodes
+    included), and the kernels torch.profiler records for one replay with
+    their summed device ms (on the card the profiler at times records
+    none after a capture: then ``traced_kernels`` is 0 and the events'
+    span stands in for the busy time, which makes the idle share a lower
+    bound)."""
+    graph(*args)
+    torch.cuda.synchronize()
+    walls, spans = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        graph(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph(*args)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    kernels = device_kernels(lambda: graph(*args))
+    traced = sum(ms for _, ms in kernels)
+    wall, span = statistics.median(walls), statistics.median(spans)
+    busy = traced if kernels else span
+    return {"host_ms_per_replay": wall, "device_span_ms_per_replay": span,
+            "traced_kernels": len(kernels), "traced_busy_ms": traced,
+            "kernel_nodes": graph.kernel_nodes, "idle_share_of_replay": 1 - busy / wall,
+            "busy_ms": busy}
 
 
 def bound_ms(bytes_moved: float, ops: float, transcendentals: float = 0.0):
@@ -623,23 +686,38 @@ def flow_config():
 
 
 def phase_flow(dev):
-    """Slice 1: run_flow at the Flow_cube benchmark config."""
+    """Slice 1: run_flow at the Flow_cube benchmark config, fused (one step
+    captured as a CUDA graph, replayed 400 times); then 50 iterations of
+    the per-step loop from the same start, whose points must equal the
+    fused run's at iteration 50; the idle share of one replayed step."""
+    import dataclasses
+
     from shwd_torch.ops import auction as au
     from shwd_torch.ops import sinkhorn_kernels as sk
-    from shwd_torch.train.flow_driver import run_flow
+    from shwd_torch.ops.emd_exact import w2_exact
+    from shwd_torch.train import flow_driver as fd
     src, tgt = flow_clouds(dev)
     cfg = flow_config()
-    # keep the inputs of the flow's last auction launch (two per step; the
-    # steps are run_flow's warm-up step on copies and the 400 timed ones)
-    # for check_auction_seeded
-    inner, seen, captured = au._auction_launch, [0], []
+    # keep the inputs of the flow's last auction launch, the seeded solve
+    # that ends a step, for check_auction_seeded. The step is captured, so
+    # the wrapper runs only at the warm-up and the capture: the captured
+    # call's tensors are buffers that every replay rewrites, and after the
+    # run they hold the last replay's inputs
+    inner, seen, last = au._auction_launch, [0], []
     steps = cfg.num_iterations + 1
 
     def recording(*args):
         seen[0] += 1
-        if seen[0] == 2 * steps:
-            captured.extend(a.clone() if torch.is_tensor(a) else a for a in args)
+        if seen[0] % 2 == 0:
+            last[:] = list(args)
         return inner(*args)
+
+    at_50 = []
+
+    def eval_w2(p, t):
+        if len(at_50) < 2:
+            at_50.append(p.copy())
+        return w2_exact(p, t)
 
     au._auction_launch = recording
     sk.emd2_warmup.launches = 0
@@ -647,31 +725,57 @@ def phase_flow(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     try:
-        res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, device=dev)
+        res = fd.run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, eval_fn=eval_w2,
+                          device=dev)
     finally:
         au._auction_launch = inner
     wall = time.perf_counter() - t0
     launches = {"emd2_warmup": sk.emd2_warmup.launches,
                 "auction_assignment": au.auction_assignment.launches}
+    captured = [a.clone() if torch.is_tensor(a) else a for a in last]
+    del last
     ms_per_iter = float(np.mean(res.interval_seconds)) / cfg.eval_interval * 1e3
     final_w2 = float(res.eval_values[-1])
     per_iter = res.interval_seconds / cfg.eval_interval * 1e3
-    emit({"phase": "flow", "ms_per_iter": ms_per_iter,
+    # the per-step loop, 50 iterations from the same start
+    step_cfg = dataclasses.replace(cfg, num_iterations=cfg.eval_interval)
+    step_res = fd.run_flow(src.cpu().numpy(), tgt.cpu().numpy(), step_cfg, device=dev,
+                           fused=False)
+    diff_50 = float(np.abs(step_res.clouds - at_50[1]).max())
+    step_ms = float(np.mean(step_res.interval_seconds)) / cfg.eval_interval * 1e3
+    # one replayed step on a fresh state: its idle share
+    init_state, step = fd._make_loss_step(cfg, dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(cfg.seed))
+    points = src.clone().requires_grad_(True)
+    state["opt"], state["sched"] = fd._make_point_opt(cfg, points)
+    graph, _ = fd._step_graph(cfg, step, state, points, tgt, dev)
+    replay = replay_profile(graph)
+    replay["idle_share_of_step"] = 1 - replay["busy_ms"] / ms_per_iter
+    emit({"phase": "flow", "path": res.path, "ms_per_iter": ms_per_iter,
+          "per_step_ms_per_iter_50": step_ms,
           "interval_ms_per_iter": per_iter.tolist(),
           "interval0_ms_per_iter": float(per_iter[0]),
           "other_intervals_ms_per_iter_range": [float(per_iter[1:].min()),
                                                 float(per_iter[1:].max())],
+          "graph": res.graph, "replayed_step": replay,
+          "points_at_50_max_abs_diff_vs_per_step": diff_50,
+          "points_at_50_bitwise_equal": diff_50 == 0.0,
           "flops_per_step": res.flops_per_step,
           "final_w2": final_w2, "best_w2": float(np.min(res.eval_values)),
           "w2_curve": res.eval_values.tolist(), "wall_seconds": wall,
           "launches": launches, "iterations": cfg.num_iterations,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    check(res.path == "fused" and res.graph["captured"], f"flow: path {res.path}")
+    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2},
+          f"flow: graph kernel nodes {res.graph['nodes_by_kernel']}")
     check(np.isfinite(res.clouds).all() and res.clouds.shape == (FLOW_N, 3),
           "flow: malformed clouds")
     check(all(v > 0 for v in launches.values()), f"flow: a kernel never ran {launches}")
     check(final_w2 <= 1e-3, f"flow: final W2 {final_w2} > 1e-3")
-    check(seen[0] == 2 * steps,
-          f"flow: {seen[0]} auction launches, expected {2 * steps}")
+    check(diff_50 <= 1e-5, f"flow: the per-step loop's points at iteration 50 are "
+          f"{diff_50} off the fused run's")
+    # the warm-up step's two solves on copies, the capture's two
+    check(seen[0] == 4, f"flow: {seen[0]} auction wrapper calls, expected 4")
     check(launches["emd2_warmup"] == steps and launches["auction_assignment"] == 2 * steps,
           f"flow: launches {launches}, expected {steps} and {2 * steps}")
     return launches, captured
@@ -729,12 +833,8 @@ def registration_config(log_dir, label, criterion="w_cos", solver="sinkhorn",
 
 
 def kernel_wrappers():
-    from shwd_torch.ops import auction as au
-    from shwd_torch.ops import sinkhorn_fused as sp
-    from shwd_torch.ops import sinkhorn_kernels as sk
-    from shwd_torch.ops.chamfer import chamfer_tiled
-    return {"emd2_warmup": sk.emd2_warmup, "auction_assignment": au.auction_assignment,
-            "sinkhorn_points": sp.sinkhorn_points, "chamfer_tiled": chamfer_tiled}
+    from shwd_torch.utils.graphs import kernel_wrappers as wrappers
+    return wrappers()
 
 
 def run_registration(dev, cfg):
@@ -800,8 +900,41 @@ def run_registration(dev, cfg):
         "best": {k: v for k, v in res["best"].items() if np.isfinite(v)},
         "wall_seconds": wall,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-        "launches": launches}
+        "launches": launches, "path": res["path"], "graphs": res["graphs"],
+        "history": [{k: r[k] for k in HISTORY_KEYS} for r in hist]}
     return summary, trainer, res, ds
+
+
+HISTORY_KEYS = ("train_loss", "val_loss", "rot_error", "trans_error")
+
+
+def history_diff(hist, ref):
+    """(largest relative difference, bitwise equal) of two histories over
+    the loss and error keys."""
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(hist, ref) for k in HISTORY_KEYS)
+    return worst, all(a[k] == b[k] for a, b in zip(hist, ref) for k in HISTORY_KEYS)
+
+
+def check_fused_launches(label, run, kernel, train_nodes, eval_nodes):
+    """A fused fit: it took the fused path; its train graph holds
+    ``train_nodes`` nodes of ``kernel`` and each eval graph ``eval_nodes``;
+    the wrapper's count is those nodes times the replays plus each graph's
+    eager warm-up run, which is 2 per train step and 1 per eval batch for
+    K3 on w_cos/sinkhorn."""
+    check(run["path"] == "fused", f"registration {label}: path {run['path']}")
+    for g in run["graphs"]:
+        want = train_nodes if g["name"].startswith("train") else eval_nodes
+        check(g["captured"] and g["nodes_by_kernel"].get(kernel, 0) == want,
+              f"registration {label}: graph {g['name']} holds "
+              f"{g['nodes_by_kernel']}, expected {want} {kernel}")
+    want = graph_launches(run["graphs"], kernel)
+    check(run["launches"][kernel] == want,
+          f"registration {label}: {kernel} launched {run['launches'][kernel]} times, "
+          f"the graphs account for {want}")
+    replays = sum(g["replays"] for g in run["graphs"] if g["name"].startswith("train"))
+    check(replays == run["train_steps"],
+          f"registration {label}: {replays} train replays for {run['train_steps']} steps")
 
 
 def profile_train_step(trainer, state, ds):
@@ -829,16 +962,19 @@ def phase_registration(dev, log_dir):
             sink_run = (cfg, res)
     emit({"phase": "registration", "batch": REG_B, "points": REG_N, "runs": runs})
     sink, hyb, cd = runs["sinkhorn"], runs["hybrid"], runs["cd"]
-    want = 2 * sink["train_steps"] + sink["eval_batches"]
+    # K3 twice per train step and once per eval batch, as graph nodes
+    check_fused_launches("sinkhorn", sink, "sinkhorn_points", 2, 1)
+    n_graphs = len(sink["graphs"])
+    want = 2 * sink["train_steps"] + sink["eval_batches"] + 2 + (n_graphs - 1)
     check(sink["launches"]["sinkhorn_points"] == want,
           f"registration: K3 launched {sink['launches']['sinkhorn_points']} "
           f"times, expected {want}")
-    check(hyb["launches"]["auction_assignment"] > 0
-          and hyb["launches"]["sinkhorn_points"] == 0,
+    check_fused_launches("hybrid", hyb, "auction_assignment", 2, 1)
+    check(hyb["launches"]["sinkhorn_points"] == 0,
           f"registration hybrid: launches {hyb['launches']}")
     # the cd criterion is the dense differentiable Chamfer in both passes
-    check(not any(cd["launches"].values()),
-          f"registration cd: launches {cd['launches']}")
+    check(cd["path"] == "fused" and not any(cd["launches"].values()),
+          f"registration cd: path {cd['path']}, launches {cd['launches']}")
     curve = sink["train_loss_curve"]
     q = max(len(curve) // 4, 1)
     first, last = float(np.mean(curve[:q])), float(np.mean(curve[-q:]))
@@ -852,7 +988,7 @@ def phase_registration(dev, log_dir):
     check(sink["val_trans_error_last"] < sink["val_trans_error_first"],
           "registration: val translation error did not fall")
     return ({"sinkhorn_points": sink["launches"]["sinkhorn_points"],
-             "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run)
+             "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run, runs)
 
 
 def phase_evaluate(dev, cfg, res, log_dir):
@@ -960,11 +1096,7 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     check(run["launches"]["sinkhorn_points"] == want_k3,
           f"data_parallel: K3 launched {run['launches']['sinkhorn_points']} times, "
           f"expected {want_k3}")
-    keys = ("train_loss", "val_loss", "rot_error", "trans_error")
-    ref = sink_res["history"][:epochs]
-    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-                for a, b in zip(res["history"], ref) for k in keys)
-    bitwise = all(a[k] == b[k] for a, b in zip(res["history"], ref) for k in keys)
+    worst, bitwise = history_diff(res["history"], sink_res["history"][:epochs])
     check(worst <= 1e-4, f"data_parallel: history off the un-meshed run by {worst}")
     # ms per train step with and without the mesh, in turns in this process
     # (phase registration's early epochs ran on a colder host)
@@ -1132,14 +1264,17 @@ def phase_registration_pseudo(dev, log_dir):
     run, trainer, res, ds = run_registration(dev, cfg)
     run.update(profile_train_step(trainer, res["state"], ds))
     emit({"phase": "registration_pseudo", "batch": REG_B, "points": REG_N, "run": run})
-    want = 2 * run["train_steps"] + 2 * run["eval_batches"]
+    # K3 once per flow per criterion call: 2 per train step, 2 per eval
+    # batch, as graph nodes (the profiled eager step's count is printed;
+    # torch.profiler at times records no kernel once graphs were captured)
+    check_fused_launches("pseudo", run, "sinkhorn_points", 2, 2)
+    n_graphs = len(run["graphs"])
+    want = 2 * run["train_steps"] + 2 * run["eval_batches"] + 2 * n_graphs
     check(run["launches"]["sinkhorn_points"] == want,
           f"registration_pseudo: K3 launched {run['launches']['sinkhorn_points']} "
           f"times, expected {want}")
-    check(run["k3_launches_per_step"] == 2,
-          f"registration_pseudo: {run['k3_launches_per_step']} K3 kernels in a step")
     check_falling_rotation("pseudo", run)
-    return run["launches"]["sinkhorn_points"]
+    return run["launches"]["sinkhorn_points"], run
 
 
 def phase_registration_max_ssw(dev, log_dir):
@@ -1161,6 +1296,8 @@ def phase_registration_max_ssw(dev, log_dir):
     run["max_abs_norm_minus_1"] = off
     emit({"phase": "registration_max_ssw", "batch": REG_B, "points": REG_N, "run": run})
     check(off <= 1e-5, f"registration_max_ssw: chart output off S^2 by {off}")
+    # the frames drawn inside the captured step, from the registered generator
+    check(run["path"] == "fused", f"registration_max_ssw: path {run['path']}")
     check(not any(run["launches"].values()),
           f"registration_max_ssw: launches {run['launches']}")
     check_falling_rotation("max_ssw", run)
@@ -1182,6 +1319,60 @@ def phase_registration_ssw_1024(dev, log_dir):
     emit({"phase": "registration_ssw_1024", "batch": REG_B, "points": SSW_N, "run": run})
     check(not any(run["launches"].values()),
           f"registration_ssw_1024: launches {run['launches']}")
+    check(run["path"] == "fused", f"registration_ssw_1024: path {run['path']}")
+
+
+def phase_fused_vs_per_step(dev, refs):
+    """For w_cos/sinkhorn, w_cos/hybrid, cd and pseudo_w_cos: fits of 5
+    epochs with fused_epoch False and True in turns (per-step, fused,
+    per-step, fused), each fit's first 4 epochs held to the fused run of
+    phase registration or registration_pseudo (rtol 1e-4; bitwise
+    reported); ms per train step of each path over the turns' epochs after
+    the first, with quartiles; the graph's kernel nodes per step and the
+    idle share of one replayed train step on a fresh state."""
+    import dataclasses
+
+    from shwd_torch.data.transforms import RegistrationBatch
+    out = {}
+    for label, (cfg_ref, run_ref) in refs.items():
+        ref = run_ref["history"][:HELD_EPOCHS]
+        turns = {"per_step": [], "fused": []}
+        held = []
+        for i, path in enumerate(("per_step", "fused", "per_step", "fused")):
+            cfg = dataclasses.replace(cfg_ref, experiment=f"turn_{label}_{i}",
+                                      num_epochs=REG_EPOCHS["turns"],
+                                      fused_epoch=path == "fused")
+            run, trainer, res, ds = run_registration(dev, cfg)
+            check(run["path"].startswith(path), f"turns {label}: path {run['path']}")
+            worst, bitwise = history_diff(run["history"][:HELD_EPOCHS], ref)
+            held.append({"path": path, "max_rel_diff": worst, "bitwise": bitwise})
+            check(worst <= 1e-4, f"turns {label} {path}: the first {HELD_EPOCHS} epochs "
+                  f"are {worst} off the fused run")
+            turns[path] += run["ms_per_train_step_by_epoch"]
+        # one replayed train step on a fresh state (the last fit's trainer)
+        state = trainer.init_state(torch.Generator(device=dev).manual_seed(7))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        batch = next(ds.batches(gen, np.arange(REG_B), REG_B, shuffle=False))
+        fused = trainer._graphs_for(state)
+
+        def step(*inputs):
+            fused["loss_sum"].add_(trainer._train_step(state, RegistrationBatch(*inputs)))
+
+        graph = trainer._step_graph(state, ("train", True), step, batch)
+        replay = replay_profile(graph, tuple(batch))
+        trainer._fused = {}
+        fused_ms = statistics.median(turns["fused"])
+        replay["idle_share_of_step"] = 1 - replay["busy_ms"] / fused_ms
+        train_graph = next(g for g in run_ref["graphs"] if g["name"].startswith("train"))
+        out[label] = {"ms_per_train_step": {k: statistics.median(v) for k, v in turns.items()},
+                      "quartiles": {k: quartiles(v) for k, v in turns.items()},
+                      "epochs": turns, "held_to_fused_run": held,
+                      "train_graph": train_graph, "replayed_step": replay,
+                      "eval_graphs": [g for g in run_ref["graphs"]
+                                      if g["name"].startswith("eval")]}
+    emit({"phase": "fused_vs_per_step", "batch": REG_B, "points": REG_N,
+          "criteria": out})
+    return out
 
 
 FLOW_METHODS = ("SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY", "GSWD_POLY3",
@@ -1226,26 +1417,50 @@ def phase_flow_methods(dev):
     400 iterations), exact W2 every 50: ms per iteration, launches and
     device busy ms of one profiled step, peak memory. Every W2 finite; the
     final W2 within 3x of the JAX row at iteration 400; below the start
-    value for every method whose JAX row ends below it."""
+    value for every method whose JAX row ends below it. A method on the
+    fused path (its directions drawn inside the captured step from the
+    registered generator) must give, at iteration 50, the points of 50
+    iterations of the per-step loop from the same start."""
     import dataclasses
 
+    from shwd_torch.ops.emd_exact import w2_exact
     from shwd_torch.train.flow_driver import run_flow
     src, tgt = flow_clouds(dev)
     rows = jax_flow_rows()
     out = {}
     for method in FLOW_METHODS:
         cfg = dataclasses.replace(flow_config(), method=method)
+        at_50 = []
+
+        def eval_w2(p, t):
+            if len(at_50) < 2:
+                at_50.append(p.copy())
+            return w2_exact(p, t)
+
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, device=dev)
+        res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(), cfg, eval_fn=eval_w2,
+                       device=dev)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
+        twin = None
+        if res.path == "fused":
+            step_res = run_flow(src.cpu().numpy(), tgt.cpu().numpy(),
+                                dataclasses.replace(cfg, num_iterations=cfg.eval_interval),
+                                device=dev, fused=False)
+            diff = float(np.abs(step_res.clouds - at_50[1]).max())
+            twin = {"points_at_50_max_abs_diff": diff,
+                    "per_step_ms_per_iter": float(np.mean(step_res.interval_seconds))
+                    / cfg.eval_interval * 1e3}
+            check(diff <= 1e-5, f"flow {method}: the per-step loop's points at "
+                  f"iteration 50 are {diff} off the fused run's")
         kernels = profiled_flow_step(cfg, dev, res.clouds, tgt)
         per_iter = res.interval_seconds / cfg.eval_interval * 1e3
         row = rows.get(JAX_ROW_NAME.get(method, method))
         want = jax_w2_at(row, cfg.num_iterations) if row else None
         final = float(res.eval_values[-1])
         out[method] = {
+            "path": res.path, "graph": res.graph, "per_step_twin": twin,
             "ms_per_iter": float(np.mean(per_iter)),
             "interval_ms_per_iter": per_iter.tolist(),
             "device_launches_per_step": len(kernels),
@@ -1397,26 +1612,14 @@ def graph_nodes(fn) -> list[int]:
     of a CUDA graph captured around one call of ``fn``, read with the
     driver's cuGraphGetNodes. ``fn`` runs once before, so nothing is built
     or first set up inside the capture."""
-    import ctypes
+    from shwd_torch.utils.graphs import graph_node_types
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    driver = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    check(driver.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * count.value)()
-    check(driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kinds.append(kind.value)
+    kinds = graph_node_types(graph)
+    check(kinds is not None, "cuGraphGetNodes failed")
     del graph
     return kinds
 
@@ -1482,7 +1685,7 @@ def main() -> int:
     phase_flow_methods(dev)
     k4["launches_cd_twins"] = phase_flow_cd_twins(dev)
     with tempfile.TemporaryDirectory() as log_dir:
-        reg_launches, (sink_cfg, sink_res) = phase_registration(dev, log_dir)
+        reg_launches, (sink_cfg, sink_res), reg_runs = phase_registration(dev, log_dir)
         k2["launches_registration"] = reg_launches["auction_assignment"]
         k3["launches"] = reg_launches["sinkhorn_points"]
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
@@ -1493,9 +1696,18 @@ def main() -> int:
         k2["launches_sweep"] = sweep_launches["auction_assignment"]
         phase_hpo(dev, log_dir)
         k3["launches_refine"] = phase_pose_refine(dev, sink_cfg, log_dir)
-        k3["launches_pseudo"] = phase_registration_pseudo(dev, log_dir)
+        k3["launches_pseudo"], pseudo_run = phase_registration_pseudo(dev, log_dir)
         phase_registration_max_ssw(dev, log_dir)
         phase_registration_ssw_1024(dev, log_dir)
+        refs = {label: (registration_config(log_dir, label, criterion, solver),
+                        reg_runs[label])
+                for label, criterion, solver in (("sinkhorn", "w_cos", "sinkhorn"),
+                                                 ("hybrid", "w_cos", "hybrid"),
+                                                 ("cd", "cd", "sinkhorn"))}
+        refs["pseudo"] = (registration_config(log_dir, "pseudo", "pseudo_w_cos",
+                                              pseudo_phi_num=2, pseudo_combine="max"),
+                          pseudo_run)
+        phase_fused_vs_per_step(dev, refs)
     phase_comparison(dev)
     phase_launches_per_call(dev, [k1, k2, k3, k4])
     emit({"kernels": [k1, k2, k3, k4]})

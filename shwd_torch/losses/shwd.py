@@ -13,7 +13,12 @@ strikes) and ``refresh`` (re-initialise phi every call).
 
 State is explicit but mutable: ``SHWDState`` holds the phi module, its
 optimizer, lam and the strike count; ``apply`` updates phi in place and
-returns the state.
+returns the state. Everything a train call changes is changed in place on
+the device (phi, its Adam state with the step count, lam), so the call can
+be recorded into a CUDA graph and replayed (``utils.graphs``). The strike
+count stays on the host: it moves only between epochs, and it decides
+whether a call runs the inner steps at all (``inner_gate``), so a graph is
+captured per value of that gate.
 """
 
 from __future__ import annotations
@@ -52,9 +57,15 @@ class SHWDState:
     JAX package's ``key``)."""
     phi: FlowChain
     opt: torch.optim.Adam
-    lam: float
+    lam: torch.Tensor               # 0-dim, on phi's device, decayed in place
     strikes: int = 0
     generator: torch.Generator | None = None
+
+
+def inner_gate(cfg: SHWDConfig, strikes: int) -> bool:
+    """Whether a train call runs the inner ascent steps: always, or, with
+    ``early_stop_strikes``, while the strikes have not passed the limit."""
+    return cfg.early_stop_strikes <= 0 or strikes <= cfg.early_stop_strikes
 
 
 def sphere_regularizer(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +103,9 @@ class SHWDLoss:
         """A fresh state; ``phi`` (e.g. converted weights) replaces the
         freshly drawn one when given."""
         phi = self.make_phi(generator) if phi is None else phi
-        return SHWDState(phi=phi, opt=self._new_opt(phi), lam=self.cfg.lam,
+        dev = next(phi.parameters()).device
+        lam = torch.full((), self.cfg.lam, dtype=torch.float32, device=dev)
+        return SHWDState(phi=phi, opt=self._new_opt(phi), lam=lam,
                          strikes=0, generator=generator)
 
     # -- internals ---------------------------------------------------------
@@ -107,7 +120,9 @@ class SHWDLoss:
         The JAX package picks cold or warm on the device from
         ``any(assign0 >= 0)``. Here the caller knows: the first solve of a
         call is cold, every later one warm; so the branch is chosen at the
-        call site and the step never syncs with the host.
+        call site and the step never syncs with the host. The warm matching
+        and prices live only within a call: inside a captured step they are
+        buffers of the graph's own pool, written by every replay.
         """
         tp = self.cfg.transport
         batched = sx.ndim == 3
@@ -174,9 +189,10 @@ class SHWDLoss:
                 state.opt = self._new_opt(state.phi)
             # once the strike limit is hit the inner work is skipped, and
             # the final solve starts cold
-            if cfg.early_stop_strikes <= 0 or state.strikes <= cfg.early_stop_strikes:
+            if inner_gate(cfg, state.strikes):
                 warm = self._inner_steps(state, x, y)
-            state.lam = state.lam * cfg.lam_decay
+            if cfg.lam_decay != 1.0:
+                state.lam.mul_(cfg.lam_decay)
         # final (undetached) forward: the gradient path to x and y
         sx, sy = self._flow_pair(state.phi, x, y)
         if self._warm_hybrid:

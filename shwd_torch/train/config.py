@@ -82,11 +82,16 @@ class TrainConfig:
     # raise. Reads the loss on the host every step.
     nan_guard: bool = False
 
-    # The JAX package fuses an epoch into one jitted scan; the port has one
-    # epoch loop. The field stays so configuration files round-trip.
+    # Fused execution. The JAX package runs an epoch as one jitted scan; the
+    # port captures one train step and one eval step per batch shape as CUDA
+    # graphs and replays them per batch (on the CPU the same static-buffer
+    # path runs without capture). Off, or with nan_guard, the exact solver,
+    # SHWD's refresh or a mesh, every step is dispatched op by op
+    # (Trainer.execution_path).
     fused_epoch: bool = True
 
-    # parallel: only the single-device default is ported
+    # parallel: data-parallel ranks over mesh_data, replicas over
+    # mesh_slices (parallel.mesh); None and 1 are the single-device default
     mesh_data: Optional[int] = None
     mesh_slices: int = 1
 

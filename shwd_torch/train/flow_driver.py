@@ -11,6 +11,15 @@ The step runs on the device without host syncs. Before the timed window
 ``run_flow`` loads the path's kernels and runs one step on copies of the
 state; each interval ends in ``torch.cuda.synchronize()``, so
 ``interval_seconds`` covers the steps and not the eval or any build.
+
+Fused execution (the default): the JAX package scans ``eval_interval``
+jitted steps as one program; here one step is captured as a CUDA graph
+(that warm-up step is the capture's warm-up, on the capture's stream) and
+replayed ``eval_interval`` times per interval, the learning-rate schedule
+stepped between replays. On the CPU the same step function is called
+directly. Methods whose step makes a fresh optimizer or rebinds its net
+(``_PER_STEP``) and SHWD on the host ``exact`` solver run op by op;
+``flow_path`` says which path a config takes.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from ..ops.chamfer import chamfer, chamfer_tiled
 from ..ops.costs import cost_matrix
 from ..ops.sinkhorn import emd2_approx
 from ..ops.spherical import sliced_wasserstein_sphere
+from ..utils.graphs import StepGraph, step_generators
+from ..utils.optim import init_adam_state, torch_adam
 from ..utils.profiling import counted_flops
 
 
@@ -78,6 +89,10 @@ class FlowResult:
     # matmul-class FLOPs of one step, counted on the warm-up step
     # (utils.profiling.counted_flops; the kernels add 0)
     flops_per_step: float = float("nan")
+    # 'fused' or 'per_step: <reason>' (flow_path), and the step graph's
+    # StepGraph.stats() on the fused path
+    path: str = "per_step"
+    graph: Optional[dict] = None
 
 
 # the CUDA kernels each SHWD solver's path may launch
@@ -87,6 +102,21 @@ _PLAIN = ("SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY", "GSWD_POLY3
           "MGSWD_POLY", "GSWD_CIRC", "MGSWD_CIRC")
 # the methods that keep a learned net across steps
 _STATEFUL = ("ASWD", "DSWD", "GSW_NN", "MGSW_NN")
+# the methods whose step builds a fresh (not capturable) Adam for its inner
+# ascent, and returns a new net: dispatched op by op
+_PER_STEP = ("MSWD", "MGSWD_POLY", "MGSWD_CIRC", "ASWD", "DSWD", "MGSW_NN")
+
+
+def flow_path(cfg: "FlowConfig", fused: bool = True) -> str:
+    """'fused' when ``run_flow`` replays a captured step for ``cfg``, else
+    'per_step: <reason>'."""
+    if not fused:
+        return "per_step: fused=False"
+    if cfg.method in _PER_STEP:
+        return f"per_step: {cfg.method}'s step makes a fresh optimizer"
+    if cfg.method == "SHWD" and cfg.shwd_solver == "exact":
+        return "per_step: the exact solver runs on the host"
+    return "fused"
 
 
 def path_kernels(cfg: FlowConfig) -> tuple[str, ...]:
@@ -98,8 +128,13 @@ def path_kernels(cfg: FlowConfig) -> tuple[str, ...]:
 
 def _make_point_opt(cfg: FlowConfig, points: torch.Tensor):
     """Adam on the coordinates, with optax's cosine decay when asked
-    (lr * ((1 - alpha) * (1 + cos(pi * t / T)) / 2 + alpha))."""
-    opt = torch.optim.Adam([points], lr=cfg.lr, betas=(0.9, 0.999))
+    (lr * ((1 - alpha) * (1 + cos(pi * t / T)) / 2 + alpha)). On the card
+    the optimizer is capturable, and a decaying lr is a device tensor the
+    scheduler fills between graph replays."""
+    lr = cfg.lr
+    if points.is_cuda and cfg.lr_decay_alpha < 1.0:
+        lr = torch.full((), cfg.lr, dtype=torch.float32, device=points.device)
+    opt = torch_adam([points], lr, 0.0, b1=0.9, b2=0.999)
     if cfg.lr_decay_alpha >= 1.0:
         return opt, None
     T, a = cfg.num_iterations, cfg.lr_decay_alpha
@@ -259,11 +294,43 @@ def _warm_up(cfg: FlowConfig, step, state, points, target, dev) -> float:
     return flops
 
 
+def _step_graph(cfg, step, state, points, target, dev):
+    """The flow step as a ``StepGraph`` (no static inputs: the points and
+    the state are updated in place) and the warm-up step's FLOPs. The
+    captured step leaves the schedule to the caller. On the card the
+    warm-up is ``_warm_up`` on the capture's stream, and the graph is
+    captured here, before any timed interval."""
+    for opt in (state["opt"], getattr(state.get("crit"), "opt", None)):
+        if opt is not None and dev.type == "cuda":
+            init_adam_state(opt)
+    unscheduled = {**state, "sched": None}
+    flops = []
+
+    def fn():
+        return step(points, target, unscheduled)
+
+    def warmup():
+        flops.append(_warm_up(cfg, step, state, points, target, dev))
+
+    name = f"flow step of {cfg.method}" + (f"/{cfg.shwd_solver}" if cfg.method == "SHWD"
+                                           else "")
+    graph = StepGraph(name, fn, (), device=dev, warmup=warmup,
+                      generators=step_generators(state))
+    if dev.type == "cuda":
+        graph.capture()
+    else:
+        warmup()
+    return graph, flops[0]
+
+
 def run_flow(source, target, cfg: FlowConfig,
              eval_fn: Optional[Callable] = None, verbose: bool = False,
-             device: str | torch.device | None = None) -> FlowResult:
+             device: str | torch.device | None = None,
+             fused: bool = True) -> FlowResult:
     """Evolve ``source`` toward ``target``; record the eval metric per
-    interval. Runs on the card unless ``device="cpu"``.
+    interval. Runs on the card unless ``device="cpu"``. ``fused`` replays
+    a captured step where ``flow_path`` allows it; False dispatches every
+    step op by op.
 
     ``eval_fn(points, target) -> float`` (numpy arguments) defaults to exact
     W2 (the scipy assignment on the host), or for ``eval_metric="cd"`` to
@@ -302,12 +369,22 @@ def run_flow(source, target, cfg: FlowConfig,
     evals = [eval_fn(host(points), target_np)]
     iters = [0]
     times = []
-    flops_step = _warm_up(cfg, step, state, points, tgt, dev)
+    path = flow_path(cfg, fused)
+    graph = None
+    if path == "fused":
+        graph, flops_step = _step_graph(cfg, step, state, points, tgt, dev)
+    else:
+        flops_step = _warm_up(cfg, step, state, points, tgt, dev)
     for it in range(cfg.num_iterations // cfg.eval_interval):
         sync()
         t0 = time.perf_counter()
         for _ in range(cfg.eval_interval):
-            step(points, tgt, state)
+            if graph is None:
+                step(points, tgt, state)
+                continue
+            graph()
+            if state["sched"] is not None:
+                state["sched"].step()
         sync()
         times.append(time.perf_counter() - t0)
         metric = eval_fn(host(points), target_np)
@@ -326,4 +403,6 @@ def run_flow(source, target, cfg: FlowConfig,
         steps_per_second=cfg.eval_interval / max(float(times_arr.mean()), 1e-12)
         if len(times) else float("nan"),
         flops_per_step=flops_step,
+        path=path,
+        graph=None if graph is None else graph.stats(),
     )

@@ -15,7 +15,20 @@ How the port differs from the JAX package's functional trainer:
   objective alone;
 - a train step makes no host sync: the epoch's loss is accumulated on the
   device and read once per epoch (every step only under ``nan_guard``);
-- one epoch loop (the JAX package's fused epoch is a jit device);
+- ``fused_epoch`` (the default, as in the JAX package) runs each train
+  step and each validation batch as a captured CUDA graph, replayed per
+  batch (``utils.graphs.StepGraph``): the JAX package's ``_epoch_scan``
+  and ``_eval_epoch_scan`` compile a whole epoch into one program, here
+  one step is captured and the batch, drawn eagerly from the trainer's
+  generator as in the per-step loop, is copied into the graph's static
+  inputs, so both paths see the same random stream. The validation pass
+  has a graph per batch shape (the full batch and the tail). The rule is
+  the JAX package's ``fused_epoch and not nan_guard``, less what a graph
+  cannot hold: the ``exact`` solver (host network simplex), SHWD's
+  ``refresh`` (a new phi every call) and a mesh take the per-step loop
+  (``execution_path`` says which, and every history row records it). On
+  the CPU the fused path calls the same step function on the same static
+  buffers, without capture;
 - data parallel (``mesh_data``/``mesh_slices``) runs one process per
   device, each on the same seed: every rank makes the same global batch and
   takes its rows, and the model's gradients are averaged over the ``data``
@@ -46,12 +59,14 @@ from ..device import resolve_device
 from ..flows import EncoderFlowChart, SphereChartMLP, make_flow
 from ..losses import (MaxSSWLoss, PseudoSHWDConfig, PseudoSHWDLoss, SHWDLoss,
                       chamfer_criterion, make_sinkhorn_criterion)
+from ..losses.shwd import inner_gate
 from ..models import PCRNet
 from ..ops.quaternion import rotation_error_deg, translation_error
 from ..parallel import mesh as pmesh
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_payload
+from ..utils.graphs import StepGraph, preserved, step_generators
 from ..utils.logging import RunLogger
-from ..utils.optim import torch_adam
+from ..utils.optim import init_adam_state, torch_adam
 from .config import TrainConfig
 
 
@@ -146,6 +161,24 @@ class Trainer:
                 raise ValueError("data-parallel w_cos needs the transport's "
                                  "batch mean (reduce='mean')")
         self._writer = self.mesh is None or torch.distributed.get_rank() == 0
+        self._fused: dict = {}      # the step graphs of the state being fitted
+
+    def execution_path(self) -> str:
+        """'fused' (captured steps replayed on the card, the same static
+        path called directly on the CPU), or 'per_step: <reason>'."""
+        cfg = self.cfg
+        if not cfg.fused_epoch:
+            return "per_step: fused_epoch=False"
+        if cfg.nan_guard:
+            return "per_step: nan_guard reads every loss on the host"
+        if self.mesh is not None:
+            return "per_step: a mesh"
+        if (cfg.criterion in ("w_cos", "w1_cos", "pseudo_w_cos")
+                and cfg.shwd.transport.solver == "exact"):
+            return "per_step: the exact solver runs on the host"
+        if cfg.criterion in ("w_cos", "w1_cos") and cfg.shwd.refresh:
+            return "per_step: refresh makes a new phi every call"
+        return "fused"
 
     def _rows(self, batch: RegistrationBatch) -> RegistrationBatch:
         """This rank's rows of a global batch (the batch itself without a
@@ -194,9 +227,87 @@ class Trainer:
                                       out.est_t[:, 0, :])
         return torch.stack([loss, torch.mean(rot_err), torch.mean(trans_err)])
 
+    # -- fused execution -------------------------------------------------------
+
+    def _graphs_for(self, state: TrainState) -> dict:
+        """The step graphs and static accumulators of ``state`` (made anew
+        for another state object)."""
+        if self._fused.get("state") is not state:
+            self._fused = {"state": state, "graphs": {},
+                           "loss_sum": torch.zeros((), device=self.device),
+                           "val_sums": torch.zeros(3, device=self.device)}
+            if self.device.type == "cuda":
+                # Adam's lazily made state must exist before a capture
+                for opt in (state.opt, getattr(state.crit_state, "opt", None)):
+                    if opt is not None:
+                        init_adam_state(opt)
+        return self._fused
+
+    def _step_graph(self, state: TrainState, key: tuple, fn, batch) -> StepGraph:
+        """The graph of ``fn`` under ``key``, made at its first use: its
+        warm-up runs the step once on the real state and puts every tensor
+        and generator back."""
+        fused = self._graphs_for(state)
+        graph = fused["graphs"].get(key)
+        if graph is None:
+            acc = (fused["loss_sum"], fused["val_sums"])
+
+            def warmup(*inputs):
+                with preserved(state, acc):
+                    fn(*inputs)
+
+            solver = (f"/{self.cfg.shwd.transport.solver}"
+                      if self.cfg.criterion in ("w_cos", "w1_cos", "pseudo_w_cos") else "")
+            name = f"{key[0]} step of {self.cfg.criterion}{solver} at {tuple(batch[1].shape)}"
+            graph = StepGraph(name, fn, batch, device=self.device, warmup=warmup,
+                              generators=step_generators(state.crit_state))
+            fused["graphs"][key] = graph
+        return graph
+
+    def _train_one_epoch_fused(self, state, dataset, indices, generator, rng):
+        """The per-step loop's batches (the same shuffle and draws), each
+        through the captured train step, which adds its loss to a static
+        device scalar read once at the end."""
+        fused = self._graphs_for(state)
+        loss_sum = fused["loss_sum"]
+        loss_sum.zero_()
+        # SHWD's inner steps run or not by the strike count, which moves
+        # only between epochs: a graph for each
+        gate = (self.cfg.criterion not in ("w_cos", "w1_cos")
+                or inner_gate(self.cfg.shwd, state.crit_state.strikes))
+
+        def step(*inputs):
+            loss_sum.add_(self._train_step(state, RegistrationBatch(*inputs)))
+
+        count = 0
+        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                     shuffle=True, rng=rng):
+            self._step_graph(state, ("train", gate), step, batch)(*batch)
+            count += 1
+        return state, float(loss_sum) / max(count, 1)
+
+    def _eval_one_epoch_fused(self, state, dataset, indices, generator):
+        """The validation batches, each through the captured eval step of
+        its shape, adding its weighted means to a static device vector."""
+        sums = self._graphs_for(state)["val_sums"]
+        sums.zero_()
+        n_items = 0
+        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                     shuffle=False, drop_remainder=False):
+            b = batch.source.shape[0]
+
+            def step(*inputs, b=b):
+                sums.add_(self._eval_step(state, RegistrationBatch(*inputs)) * b)
+
+            self._step_graph(state, ("eval", b), step, batch)(*batch)
+            n_items += b
+        return sums, n_items
+
     # -- epochs ----------------------------------------------------------------
 
     def train_one_epoch(self, state, dataset, indices, generator, rng):
+        if self.execution_path() == "fused":
+            return self._train_one_epoch_fused(state, dataset, indices, generator, rng)
         total = torch.zeros((), device=self.device)
         count = 0
         for batch in dataset.batches(generator, indices, self.cfg.batch_size,
@@ -234,6 +345,19 @@ class Trainer:
         not is computed whole on every rank (the JAX package's replicated
         fallback).
         """
+        if self.execution_path() == "fused":
+            sums, n_items = self._eval_one_epoch_fused(state, dataset, indices, generator)
+        else:
+            sums, n_items = self._eval_per_step(state, dataset, indices, generator)
+        if n_items == 0:
+            raise ValueError(
+                "validation set produced no batches: check val_split / "
+                "batch_size (eval never drops remainders, so this means the "
+                "val index set itself is empty)")
+        loss, rot, trans = (sums / n_items).tolist()
+        return loss, rot, trans
+
+    def _eval_per_step(self, state, dataset, indices, generator):
         sums = torch.zeros(3, device=self.device)
         split = torch.zeros(3, device=self.device)
         n_items = 0
@@ -251,13 +375,7 @@ class Trainer:
             if self._reduce == "sum":       # a summed loss adds up over ranks
                 split[0] *= self._n_data
             sums = sums + split
-        if n_items == 0:
-            raise ValueError(
-                "validation set produced no batches: check val_split / "
-                "batch_size (eval never drops remainders, so this means the "
-                "val index set itself is empty)")
-        loss, rot, trans = (sums / n_items).tolist()
-        return loss, rot, trans
+        return sums, n_items
 
     # -- full run ----------------------------------------------------------------
 
@@ -274,6 +392,8 @@ class Trainer:
             logger = RunLogger(log_dir)
         verbose = verbose and self._writer
 
+        path = self.execution_path()
+        self._fused, graph_stats = {}, []
         rng = np.random.default_rng(cfg.seed)
         gen_init = torch.Generator(device=self.device).manual_seed(cfg.seed)
         gen_data = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
@@ -366,7 +486,7 @@ class Trainer:
                            trans_error=trans_err,
                            best_trans_error=best["trans"], seconds=dt,
                            train_seconds=train_dt,
-                           train_steps=len(train_idx) // cfg.batch_size)
+                           train_steps=len(train_idx) // cfg.batch_size, path=path)
                 history.append(row)
                 if logger is not None:
                     logger.log(row)
@@ -377,6 +497,9 @@ class Trainer:
                           f" Trans error: {trans_err:.4f}, Time: {dt:.2f}s")
         finally:
             group_scope.__exit__(None, None, None)
+            # the graphs and their memory pools go with the fit
+            graph_stats = [g.stats() for g in self._fused.get("graphs", {}).values()]
+            self._fused = {}
             flush_snaps()
             if logger is not None:
                 logger.close()
@@ -387,4 +510,5 @@ class Trainer:
                 signal.signal(signal.SIGTERM,
                               old_term if old_term is not None
                               else signal.SIG_DFL)
-        return {"best": best, "history": history, "state": state}
+        return {"best": best, "history": history, "state": state, "path": path,
+                "graphs": graph_stats}

@@ -6,8 +6,13 @@ state is a dataclass (``SHWDState``, ``PseudoSHWDState``, ``MaxSSWState``);
 each field is saved by its kind: a module (phi, the pseudo flows, the
 chart, with their spectral-norm buffers) and an optimizer by their state
 dicts, a ``torch.Generator`` by its state (so a resumed run draws the
-frames and refreshes an uninterrupted one would), numbers as they are.
-The JAX package's states carry their key the same way. The port's modules
+frames and refreshes an uninterrupted one would), a tensor (SHWD's 0-dim
+lam) as a copy, numbers as they are. The JAX package's states carry their
+key the same way. Loading writes into the state's tensors in place (a
+module's parameters, lam) or replaces an optimizer's state through
+``load_state_dict``, which puts a capturable Adam's step count on the
+parameters' device; a CUDA graph captured before a load is stale, so the
+trainer captures its steps after it. The port's modules
 and optimizers are updated in place, so a "best so far" snapshot must be a
 copy: ``state_payload`` clones every tensor on its device, and the trainer
 writes such payloads later. Files are written to a temporary name and
@@ -55,6 +60,8 @@ def _crit_payload(crit: Any) -> dict:
             v = _clone(v.state_dict())
         elif isinstance(v, torch.Generator):
             v = v.get_state()
+        elif isinstance(v, torch.Tensor):   # lam, updated in place
+            v = v.detach().clone()
         out[f.name] = v
     return out
 
@@ -72,7 +79,10 @@ def _load_crit(crit: Any, saved: dict) -> None:
             cur.load_state_dict(v)
         elif isinstance(cur, torch.Generator):
             cur.set_state(v)
-        elif not isinstance(v, torch.Tensor):   # lam, strikes
+        elif isinstance(cur, torch.Tensor):     # lam (a number in older files)
+            with torch.no_grad():
+                cur.copy_(torch.as_tensor(v, dtype=cur.dtype))
+        elif not isinstance(v, torch.Tensor):   # strikes
             setattr(crit, f.name, v)
 
 

@@ -126,16 +126,32 @@ def load_chart(chart, params, state):
     return chart
 
 
+def _capturable(opt: torch.optim.Adam, p: torch.Tensor) -> bool:
+    for group in opt.param_groups:
+        if any(q is p for q in group["params"]):
+            return bool(group["capturable"] or group["fused"])
+    raise ValueError("the optimizer does not hold this parameter")
+
+
+def _set_adam_entry(opt: torch.optim.Adam, p: torch.Tensor, step: float, m, v) -> None:
+    """One parameter's Adam state from an optax count and moments. The step
+    count is a float32 tensor on the parameter's device for a capturable
+    (or fused) optimizer, on the CPU otherwise, as ``torch.optim.Adam``
+    keeps it."""
+    opt.state[p] = {
+        "step": torch.tensor(step, dtype=torch.float32,
+                             device=p.device if _capturable(opt, p) else "cpu"),
+        "exp_avg": torch.tensor(np.asarray(m), dtype=p.dtype, device=p.device),
+        "exp_avg_sq": torch.tensor(np.asarray(v), dtype=p.dtype, device=p.device)}
+
+
 def load_max_ssw_adam_state(opt: torch.optim.Adam, chart, mu, nu, count: Any) -> None:
     """Set the max-SSW chart optimizer's state from an optax
     ``ScaleByAdamState`` (``mu``/``nu`` in the chart's params layout,
     ``count`` the step)."""
     step = float(np.asarray(count))
     for (p, m, _), (_, v, _) in zip(_chart_pairs(chart, mu), _chart_pairs(chart, nu)):
-        opt.state[p] = {
-            "step": torch.tensor(step),
-            "exp_avg": torch.tensor(np.asarray(m), dtype=p.dtype, device=p.device),
-            "exp_avg_sq": torch.tensor(np.asarray(v), dtype=p.dtype, device=p.device)}
+        _set_adam_entry(opt, p, step, m, v)
 
 
 def phi_tree(flow: FlowChain):
@@ -162,14 +178,7 @@ def load_adam_state(opt: torch.optim.Adam, flow: FlowChain, mu, nu,
     layers = list(_layers(flow))
     for layer, m, v in zip(layers, _flat(mu), _flat(nu)):
         for name in ("w", "b", "beta"):
-            p = getattr(layer, name)
-            opt.state[p] = {
-                "step": torch.tensor(step),
-                "exp_avg": torch.tensor(np.asarray(m[name]), dtype=p.dtype,
-                                        device=p.device),
-                "exp_avg_sq": torch.tensor(np.asarray(v[name]), dtype=p.dtype,
-                                           device=p.device),
-            }
+            _set_adam_entry(opt, getattr(layer, name), step, m[name], v[name])
 
 
 def _pcrnet_layers(model: PCRNet):
@@ -210,14 +219,8 @@ def load_pcrnet_adam_state(opt: torch.optim.Adam, model: PCRNet, mu, nu,
     step = float(np.asarray(count))
     for layer, group, i in _pcrnet_layers(model):
         for name in ("w", "b"):
-            p = getattr(layer, name)
-            opt.state[p] = {
-                "step": torch.tensor(step),
-                "exp_avg": torch.tensor(np.asarray(mu[group][i][name]),
-                                        dtype=p.dtype, device=p.device),
-                "exp_avg_sq": torch.tensor(np.asarray(nu[group][i][name]),
-                                           dtype=p.dtype, device=p.device),
-            }
+            _set_adam_entry(opt, getattr(layer, name), step, mu[group][i][name],
+                            nu[group][i][name])
 
 
 def _zoo_linear(p, out_dim: int, in_dim: int, name: str, device) -> dict:

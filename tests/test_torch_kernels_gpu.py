@@ -680,3 +680,203 @@ def test_flow_method_step_makes_no_host_sync(cuda, method):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(loss)) and bool(torch.isfinite(points).all())
+
+
+# -- fused execution: captured steps replayed -------------------------------------
+
+def _fused_fit_pair(tmp_path, criterion, n=128, epochs=2, **kw):
+    """``Trainer.fit`` at B=128 on a 640-shape 'composite' bank (448 train
+    clouds: 3 train steps an epoch; 192 validation clouds: a full eval batch
+    and a tail of 64) with fused_epoch True and False, from the same seed.
+    Returns (fused trainer, fused result, per-step result)."""
+    import dataclasses
+
+    from shwd_torch.data import DatasetConfig, RegistrationDataset, TransformConfig
+    from shwd_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(
+        experiment="fused", log_dir=str(tmp_path), criterion=criterion, batch_size=128,
+        num_epochs=epochs, seed=0, checkpoint_flush_every=0,
+        dataset=DatasetConfig(source_point_num=n, target_point_num=n, num_synthetic=640,
+                              synthetic_kinds=("composite",), val_split=0.3,
+                              cache_dir=str(tmp_path / "mc"),
+                              transform=TransformConfig(noise_sigma=0.02)), **kw)
+    out = []
+    for fused in (True, False):
+        c = dataclasses.replace(cfg, fused_epoch=fused, experiment=f"fused_{fused}")
+        trainer = Trainer(c)
+        ds = RegistrationDataset(c.dataset, "train")
+        out.append((trainer, trainer.fit(ds, verbose=False)))
+    (trainer, fused_res), (_, step_res) = out
+    return trainer, fused_res, step_res
+
+
+def _history_rel_diff(a, b):
+    keys = ("train_loss", "val_loss", "rot_error", "trans_error")
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+               for x, y in zip(a["history"], b["history"]) for k in keys)
+
+
+def _sinkhorn_kw(solver):
+    from shwd_torch.losses import SHWDConfig, TransportConfig
+    return dict(shwd=SHWDConfig(
+        transport=TransportConfig(cost="lp", p=2.0, solver=solver, eps=5e-3,
+                                  num_iters=50, num_scales=4),
+        max_iter=1, lam=1.3e-5, phi_lr=9.2e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["sinkhorn", "hybrid"])
+def test_captured_train_and_eval_steps_match_the_per_step_path(cuda, tmp_path, solver):
+    """w_cos on K3 ("sinkhorn") and on K2 ("hybrid"): two epochs, each 3
+    replays of the captured train step and one replay each of the full and
+    the tail eval graph, against fused_epoch=False from the same seed. The
+    history agrees to rtol 1e-4 (cuBLAS may pick other algorithms under
+    capture), the weights after it to atol 1e-5; the graphs hold the
+    kernels as nodes: K3 2 per train step and 1 per eval batch, K2 2 per
+    train step."""
+    trainer, fused, step = _fused_fit_pair(tmp_path, "w_cos", **_sinkhorn_kw(solver))
+    assert fused["path"] == "fused" and step["path"].startswith("per_step")
+    assert all(r["path"] == "fused" for r in fused["history"])
+    assert _history_rel_diff(fused, step) <= 1e-4
+    for a, b in zip(fused["state"].model.parameters(), step["state"].model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    stats = fused["graphs"]
+    train = [s for s in fused["graphs"] if s["name"].startswith("train")]
+    evals = [s for s in fused["graphs"] if s["name"].startswith("eval")]
+    assert len(train) == 1 and train[0]["replays"] == 6, stats
+    assert sorted(s["replays"] for s in evals) == [2, 2], stats
+    kernel = "sinkhorn_points" if solver == "sinkhorn" else "auction_assignment"
+    assert train[0]["nodes_by_kernel"].get(kernel) == 2, train[0]
+    if solver == "sinkhorn":
+        assert all(s["nodes_by_kernel"].get(kernel) == 1 for s in evals), evals
+    assert all(s["kernel_nodes"] and s["kernel_nodes"] > 100 for s in fused["graphs"])
+
+
+@pytest.mark.gpu
+def test_replays_count_kernel_launches(cuda, tmp_path):
+    """The K3 counter under replay: a 1-epoch sinkhorn fit counts 2 launches
+    for the train step's warm-up and 2 per replay (3 steps), 1 for each eval
+    graph's warm-up and 1 per replay (a full batch and a tail): 12."""
+    k0 = tp.sinkhorn_points.launches
+    _, fused, _ = _fused_fit_pair(tmp_path, "w_cos", epochs=1, **_sinkhorn_kw("sinkhorn"))
+    fused_launches = 2 + 2 * 3 + 2 * (1 + 1)
+    per_step = 2 * 3 + 2
+    assert tp.sinkhorn_points.launches - k0 == fused_launches + per_step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cd", "pseudo_w_cos", "max_ssw", "w_cos_ssw"])
+def test_captured_steps_of_the_other_criteria_match_the_per_step_path(cuda, tmp_path,
+                                                                      case):
+    """cd (no kernel), pseudo_w_cos (K3 twice a call) and the criteria that
+    draw inside the step (max-SSW's frames, the ssw solver's frames) with
+    their generator registered with the graph: two fused epochs equal the
+    per-step run's to rtol 1e-4."""
+    from shwd_torch.losses import MaxSSWConfig, SHWDConfig, TransportConfig
+    kw = {"cd": dict(criterion="cd"), "pseudo_w_cos": dict(criterion="pseudo_w_cos"),
+          "max_ssw": dict(criterion="max_ssw", max_ssw=MaxSSWConfig(
+              num_projections=128, max_iter=1, phi_lr=9.213e-5, p=1.0)),
+          "w_cos_ssw": dict(criterion="w_cos", shwd=SHWDConfig(
+              transport=TransportConfig(cost="geodesic", p=2.0, solver="ssw",
+                                        num_projections=64),
+              max_iter=1, lam=1.311e-5, phi_lr=9.213e-5))}[case]
+    _, fused, step = _fused_fit_pair(tmp_path, **kw)
+    assert fused["path"] == "fused"
+    assert _history_rel_diff(fused, step) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_capture_with_a_host_sync_raises(cuda, tmp_path):
+    """A step that reads a value on the host cannot be captured: StepGraph
+    raises with the step's name, and Trainer.fit raises instead of running
+    the step eagerly."""
+    from shwd_torch.data import DatasetConfig, RegistrationDataset
+    from shwd_torch.train import TrainConfig, Trainer
+    from shwd_torch.utils.graphs import StepGraph
+
+    x = torch.ones(4, device=cuda)
+    graph = StepGraph("syncing step", lambda t: t * float(t.sum()), [x], device=cuda)
+    with pytest.raises(RuntimeError, match="syncing step"):
+        graph(x)
+    cfg = TrainConfig(log_dir=str(tmp_path), criterion="cd", batch_size=8, num_epochs=1,
+                      dataset=DatasetConfig(source_point_num=32, target_point_num=32,
+                                            num_synthetic=32, cache_dir=str(tmp_path / "mc")))
+    trainer = Trainer(cfg)
+    inner = trainer.crit_apply
+
+    def syncing(state, x, y, train=True):
+        (loss, sx, sy), state = inner(state, x, y, train)
+        return (loss * float(loss), sx, sy), state
+
+    trainer.crit_apply = syncing
+    with pytest.raises(RuntimeError, match="capturing step 'train step of cd"):
+        trainer.fit(RegistrationDataset(cfg.dataset, "train"), verbose=False)
+
+
+@pytest.mark.gpu
+def test_step_graph_replays_the_eager_draws(cuda):
+    """A registered generator: three replays of a step that draws from it
+    give the three eager steps' numbers bit for bit, and leave the
+    generator where the eager steps leave it."""
+    from shwd_torch.utils.graphs import StepGraph
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    twin = torch.Generator(device=cuda).manual_seed(5)
+    acc = torch.zeros(3, 8, device=cuda)
+    row = torch.zeros((), dtype=torch.long, device=cuda)
+
+    def step():
+        acc.index_copy_(0, row[None], torch.randn(1, 8, generator=gen, device=cuda))
+        row.add_(1)
+
+    graph = StepGraph("draw", step, (), device=cuda, generators=[gen])
+    for _ in range(3):
+        graph()
+    want = torch.stack([torch.randn(8, generator=twin, device=cuda) for _ in range(3)])
+    assert torch.equal(acc, want)
+    assert torch.equal(torch.randn(8, generator=gen, device=cuda),
+                       torch.randn(8, generator=twin, device=cuda))
+
+
+@pytest.mark.gpu
+def test_captured_flow_step_matches_the_per_step_loop(cuda):
+    """The Flow_cube SHWD/hybrid step (1200 points, K1 once and K2 twice a
+    step) captured and replayed 10 times gives the per-step loop's points
+    (atol 1e-6) and W2; the graph holds K1 once and K2 twice."""
+    from shwd_torch.ops.sphere_sampling import sample_cube_surface
+    from shwd_torch.train import flow_driver as fd
+
+    rng = np.random.default_rng(0)
+    src = sample_cube_surface(rng, 1200).numpy()
+    tgt = sample_cube_surface(rng, 1200, biased=True).numpy()
+    cfg = fd.FlowConfig(num_iterations=10, eval_interval=5, shwd_solver="hybrid")
+    k1, k2 = tk.emd2_warmup.launches, ta.auction_assignment.launches
+    fused = fd.run_flow(src, tgt, cfg)
+    # warm-up step on copies, then 10 replays
+    assert tk.emd2_warmup.launches - k1 == 11 and ta.auction_assignment.launches - k2 == 22
+    step = fd.run_flow(src, tgt, cfg, fused=False)
+    assert fused.path == "fused" and step.path.startswith("per_step")
+    assert fused.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2}
+    np.testing.assert_allclose(fused.clouds, step.clouds, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(fused.eval_values, step.eval_values, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["SWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY",
+                                    "GSWD_POLY3", "GSWD_CIRC", "GSW_NN"])
+def test_captured_flow_methods_match_the_per_step_loop(cuda, method):
+    """The sliced zoo's fused methods (300 points, 6 iterations), the random
+    directions drawn inside the captured step from the registered
+    generator: the points equal the per-step loop's (atol 1e-6)."""
+    from shwd_torch.ops.sphere_sampling import sample_cube_surface
+    from shwd_torch.train import flow_driver as fd
+
+    rng = np.random.default_rng(0)
+    src = sample_cube_surface(rng, 300).numpy()
+    tgt = sample_cube_surface(rng, 300, biased=True).numpy()
+    cfg = fd.FlowConfig(method=method, num_iterations=6, eval_interval=3)
+    fused = fd.run_flow(src, tgt, cfg)
+    step = fd.run_flow(src, tgt, cfg, fused=False)
+    assert fused.path == "fused"
+    np.testing.assert_allclose(fused.clouds, step.clouds, rtol=0, atol=1e-6)
