@@ -33,7 +33,10 @@ Phases, each printing one JSON line:
      be <= 1e-3, and 50 iterations of the per-step loop from the same
      start must give the fused run's points at iteration 50; ms/iter of
      both, the graph's kernel nodes and the idle share of one replayed
-     step. It runs right after the build, before any kernel
+     step; and the Adam isolation: three steps of the capturable and the
+     host-side Adam in ulps, where the per-step trajectories of the two
+     part over 50 iterations, and the final W2 of 400 per-step iterations
+     with host-side Adams. It runs right after the build, before any kernel
      is loaded: its first interval shows that run_flow loads the kernels
      and warms up outside its timed window. Then a 20-iteration run of the
      same flow with eval_metric="cd", which records the tiled Chamfer (K4)
@@ -41,8 +44,9 @@ Phases, each printing one JSON line:
      zoo, SSW, Chamfer, entropic W2) at the same width, 400 iterations
      each, W2 every 50, held to the JAX package's rows in
      benchmarks/results_cube.json (within 3x, and below the start where
-     the row ends below it), each fused method's points at iteration 50
-     equal to 50 per-step iterations', and the Chamfer-metric twins of
+     the row ends below it), every method fused, its points at iteration
+     50 equal to 50 per-step iterations' (bit for bit for the six methods
+     with an inner Adam ascent), and the Chamfer-metric twins of
      SWD, ASWD, SSWD and CD, 100 iterations each on K4;
   5. slice 2: the W_COS registration trainer, shwd_torch.train.Trainer.fit
      at B=128, N=M=128, full-width PCRNet, 3 Residual layers, on the
@@ -65,10 +69,12 @@ Phases, each printing one JSON line:
      giving the same per-sample errors, bit for bit, from memory and from
      a checkpoint reloaded into a fresh state;
   6a. the parallel layer at world size 1 over NCCL (data_parallel): the
-     sinkhorn run's config with mesh_data=1 for 4 epochs, whose history
-     must equal that run's first 4 epochs (rtol 1e-4), K3 counted; ms
-     per train step with and without the mesh, in turns; the collectives
-     of one train step; the sharded SSW, transport and distributed SSW
+     sinkhorn run's config with mesh_data=1 for 4 epochs, fused (the
+     step's NCCL collectives captured with it), whose history must equal
+     that run's first 4 epochs bit for bit, K3 and the collectives counted
+     as graph nodes x replays; ms per train step of fused fits with and
+     without the mesh, in turns; the collectives of one eager train step;
+     the sharded SSW, transport and distributed SSW
      against their unsharded values, sharded refinement (sinkhorn, K3)
      against refine_poses, and the scaling harness at one card; then the
      sweep runner (sweep: a zip matrix of two 2-epoch experiments in
@@ -79,9 +85,12 @@ Phases, each printing one JSON line:
      that runs a fourth; the cd criterion launches no kernel);
   6b. pose refinement: the sinkhorn run's best-rotation PCRNet on the
      first train batch, polished by refine_model_output with the
-     "sinkhorn" loss (K3 num_steps + 1 times a call), "cd" and "ssw", 100
-     steps each: the objective falls, the median rotation error does not
-     rise;
+     "sinkhorn" loss (K3 once per step and once for the final loss), "cd"
+     and "ssw", 100 steps each, fused (the step and the final objective
+     captured at the first call and replayed from the cache), then
+     per-step and fused calls in turns, all bit for bit the same, K3
+     counted exactly on each: the objective falls, the median rotation
+     error does not rise;
   7. the criteria of the SSW family, each a Trainer.fit at full width with
      the counts reset before and read after: pseudo_w_cos (two frozen
      Residual flows, max, TrainConfig's default transport: K3 once per
@@ -743,6 +752,7 @@ def phase_flow(dev):
                            fused=False)
     diff_50 = float(np.abs(step_res.clouds - at_50[1]).max())
     step_ms = float(np.mean(step_res.interval_seconds)) / cfg.eval_interval * 1e3
+    adam = adam_isolation(dev, cfg, src, tgt, final_w2)
     # one replayed step on a fresh state: its idle share
     init_state, step = fd._make_loss_step(cfg, dev)
     state = init_state(torch.Generator(device=dev).manual_seed(cfg.seed))
@@ -759,7 +769,7 @@ def phase_flow(dev):
                                                 float(per_iter[1:].max())],
           "graph": res.graph, "replayed_step": replay,
           "points_at_50_max_abs_diff_vs_per_step": diff_50,
-          "points_at_50_bitwise_equal": diff_50 == 0.0,
+          "points_at_50_bitwise_equal": diff_50 == 0.0, "adam_isolation": adam,
           "flops_per_step": res.flops_per_step,
           "final_w2": final_w2, "best_w2": float(np.min(res.eval_values)),
           "w2_curve": res.eval_values.tolist(), "wall_seconds": wall,
@@ -779,6 +789,91 @@ def phase_flow(dev):
     check(launches["emd2_warmup"] == steps and launches["auction_assignment"] == 2 * steps,
           f"flow: launches {launches}, expected {steps} and {2 * steps}")
     return launches, captured
+
+
+def adam_step_ulps(a: torch.Tensor, b: torch.Tensor, lr: float) -> tuple[float, float]:
+    """(largest |a - b| in ulps of b, largest |a - b| in ulps of max(|b|,
+    lr)): the second is the rounding of an Adam update of size about lr,
+    which a parameter that the update nearly cancels would inflate in the
+    first."""
+    diff = (a - b).abs().double()
+    inf = torch.tensor(float("inf"), device=b.device)
+    scale = torch.maximum(b.abs(), torch.full_like(b, lr))
+    raw = diff / (torch.nextafter(b.abs(), inf) - b.abs()).double()
+    scaled = diff / (torch.nextafter(scale, inf) - scale).double()
+    return float(raw.max()), float(scaled.max())
+
+
+def eager_adam(opt):
+    """The same Adam with its step count and bias corrections on the host
+    (capturable=False), as the optimizers of the port were before its steps
+    were captured."""
+    g = opt.param_groups[0]
+    return torch.optim.Adam(g["params"], lr=g["lr"], betas=g["betas"], eps=g["eps"],
+                            weight_decay=g["weight_decay"], capturable=False)
+
+
+def flow_per_step(dev, cfg, src, tgt, iterations, capturable, keep):
+    """The flow's per-step loop from a fresh state (run_flow(fused=False)'s
+    trajectory), its Adams capturable or not: the points after each of the
+    first ``keep`` iterations, and the final points."""
+    from shwd_torch.train import flow_driver as fd
+    init_state, step = fd._make_loss_step(cfg, dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(cfg.seed))
+    points = src.clone().requires_grad_(True)
+    state["opt"], state["sched"] = fd._make_point_opt(cfg, points)
+    if not capturable:
+        state["opt"] = eager_adam(state["opt"])
+        state["crit"].opt = eager_adam(state["crit"].opt)
+    traj = []
+    for i in range(iterations):
+        step(points, tgt, state)
+        if i < keep:
+            traj.append(points.detach().clone())
+    return traj, points.detach()
+
+
+def adam_isolation(dev, cfg, src, tgt, fused_w2):
+    """Whether the capturable Adam alone moved the flow's final W2 (5.0077e-4
+    on the H100 with the host-side Adam, 5.6649e-4 since the optimizers are
+    capturable): three steps of each Adam on the same parameters and
+    gradients (the capturable one forms its bias corrections in f32 on the
+    card), in ulps and relative to the largest update; where the per-step
+    trajectories of the two part over the first 50 iterations; and the final
+    W2 of 400 per-step iterations with the host-side Adams."""
+    from shwd_torch.ops.emd_exact import w2_exact
+    from shwd_torch.utils.optim import torch_adam
+    rng = np.random.default_rng(0)
+    ulps = {}
+    for name, shape, lr, wd in (("points", (FLOW_N, 3), cfg.lr, 0.0),
+                                ("phi", (64, 64), cfg.shwd_phi_lr, cfg.shwd_phi_wd)):
+        w = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+        g = torch.as_tensor(rng.normal(size=shape) * 1e-3, dtype=torch.float32, device=dev)
+        out = []
+        for capturable in (True, False):
+            p = w.clone().requires_grad_(True)
+            opt = torch_adam([p], lr, wd, capturable=capturable)
+            for _ in range(3):
+                p.grad = g.clone()
+                opt.step()
+            out.append(p.detach())
+        ucap, uhost = (o.double() - w.double() for o in out)
+        ulps[name] = adam_step_ulps(out[0], out[1], lr) + (
+            float((ucap - uhost).abs().max() / uhost.abs().max()),)
+    keep = cfg.eval_interval
+    cap, _ = flow_per_step(dev, cfg, src, tgt, keep, True, keep)
+    t0 = time.perf_counter()
+    host, final = flow_per_step(dev, cfg, src, tgt, cfg.num_iterations, False, keep)
+    host_s = time.perf_counter() - t0
+    diffs = [float((a - b).abs().max()) for a, b in zip(cap, host)]
+    parted = next((i + 1 for i, d in enumerate(diffs) if d > 0), None)
+    w2 = w2_exact(final.cpu().numpy(), tgt.cpu().numpy())
+    check(np.isfinite(w2), f"flow: the host-side Adam run's W2 is {w2}")
+    return {"three_steps_ulps_of_parameter_and_of_update_and_relative_update": ulps,
+            "trajectories_part_at_iteration": parted,
+            "max_abs_diff_by_iteration": diffs,
+            "host_adam_w2_at_400": w2, "capturable_adam_fused_w2_at_400": fused_w2,
+            "host_adam_run_seconds": host_s}
 
 
 def phase_flow_cd(dev):
@@ -1060,12 +1155,15 @@ def phase_evaluate(dev, cfg, res, log_dir):
 def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     """The parallel layer at world size 1 over NCCL (one card): Trainer.fit
     with mesh_data=1 for the first 4 epochs of phase registration's sinkhorn
-    run (K3), whose history it must match (rtol 1e-4); ms per train step
-    with and without the mesh, two 9-epoch fits each, in turns; one train
-    step's collectives; the sharded SSW, transport and distributed SSW against
-    their unsharded port functions on the registration batch; sharded
-    refinement (sinkhorn, K3) against refine_poses; the scaling harness at
-    D = 1."""
+    run (K3), fused (the train step captured with its 2 collectives), whose
+    history must equal that run's bit for bit, K3 and the collectives
+    counted as graph nodes x replays; ms per train step of fused fits with
+    and without the mesh and of meshed per-step fits (held to the fused run
+    at rtol 1e-4), two 9-epoch fits each, in turns; one eager train
+    step's collectives (2); the sharded SSW, transport and distributed SSW
+    against their unsharded port functions on the registration batch;
+    sharded refinement (sinkhorn, K3, its own captured graphs) against
+    refine_poses; the scaling harness at D = 1."""
     import dataclasses
     import torch.distributed as dist
     from shwd_torch.data import RegistrationDataset
@@ -1077,6 +1175,7 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
                                      make_sharded_ssw, make_sharded_transport,
                                      measure_scaling, sharded_refine_poses)
     from shwd_torch.parallel import mesh as pmesh
+    from shwd_torch.train import pose_refine as pr
     from shwd_torch.train.pose_refine import PoseRefineConfig, refine_poses
     from shwd_torch.train.trainer import _mean_subtract
     rank_dev = pmesh.initialize_distributed()
@@ -1092,23 +1191,42 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     fit_collectives = pmesh.collective_calls
     check(trainer.mesh is not None and trainer._n_data == 1,
           "data_parallel: the trainer built no mesh")
-    want_k3 = 2 * run["train_steps"] + run["eval_batches"]
-    check(run["launches"]["sinkhorn_points"] == want_k3,
-          f"data_parallel: K3 launched {run['launches']['sinkhorn_points']} times, "
-          f"expected {want_k3}")
+    # fused under the mesh: K3 2 per train step and 1 per eval batch as
+    # graph nodes, the step's 2 collectives recorded into the train graph
+    check_fused_launches("data_parallel", run, "sinkhorn_points", 2, 1)
+    train_graph = next(g for g in run["graphs"] if g["name"].startswith("train"))
+    check(train_graph["collectives"] == 2,
+          f"data_parallel: the train graph holds {train_graph['collectives']} collectives")
+    # the graphs' collectives x (replays + warm-up run), and per epoch the
+    # loss and the validation sums reduced once outside them
+    want = (sum(g["collectives"] * (g["replays"] + 1) for g in run["graphs"])
+            + 2 * len(run["history"]))
+    check(fit_collectives == want, f"data_parallel: {fit_collectives} collectives in "
+          f"the fit, the graphs and the epochs account for {want}")
     worst, bitwise = history_diff(res["history"], sink_res["history"][:epochs])
-    check(worst <= 1e-4, f"data_parallel: history off the un-meshed run by {worst}")
-    # ms per train step with and without the mesh, in turns in this process
-    # (phase registration's early epochs ran on a colder host)
-    turns = {"unmeshed": [], "meshed": []}
-    for label in ("unmeshed", "meshed", "unmeshed", "meshed"):
+    check(bitwise, f"data_parallel: the meshed fused history is {worst} off the "
+          "un-meshed fused run's")
+    # ms per train step of fused fits without and with the mesh and of the
+    # meshed per-step fit, in turns in this process (phase registration's
+    # early epochs ran on a colder host); the per-step fit held to the
+    # fused run's first 4 epochs
+    turns = {"unmeshed": [], "meshed": [], "meshed_per_step": []}
+    held = []
+    for label in ("unmeshed", "meshed", "meshed_per_step") * 2:
         ab_cfg = dataclasses.replace(cfg, experiment=f"data_parallel_{label}",
                                      num_epochs=REG_EPOCHS["data_parallel_ab"],
-                                     mesh_data=1 if label == "meshed" else None)
+                                     mesh_data=None if label == "unmeshed" else 1,
+                                     fused_epoch=label != "meshed_per_step")
         ab, *_ = run_registration(dev, ab_cfg)
         turns[label] += ab["ms_per_train_step_by_epoch"]
-    unmeshed_ms = float(np.mean(turns["unmeshed"]))
-    meshed_ms = float(np.mean(turns["meshed"]))
+        if label == "meshed_per_step":
+            check(ab["path"] == "per_step: fused_epoch=False",
+                  f"data_parallel: the per-step fit took {ab['path']}")
+            diff, same = history_diff(ab["history"][:epochs], res["history"])
+            held.append({"max_rel_diff": diff, "bitwise": same})
+            check(diff <= 1e-4, f"data_parallel: the meshed per-step fit is {diff} off "
+                  "the meshed fused run")
+    ms = {k: statistics.median(v) for k, v in turns.items()}
     # one train step's collectives (the gradient bucket and phi's, 2 here)
     gen = torch.Generator(device=dev).manual_seed(7)
     batch = next(ds.batches(gen, np.arange(REG_B), REG_B, shuffle=False))
@@ -1116,6 +1234,8 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     with pmesh.data_parallel(trainer._data_group):
         trainer._train_step(res["state"], trainer._rows(batch))
     step_collectives = pmesh.collective_calls
+    check(step_collectives == 2,
+          f"data_parallel: an eager train step issued {step_collectives} collectives")
 
     # the sharded losses against their unsharded port functions
     mesh = make_mesh(data=1, slices=1, device=dev)
@@ -1136,16 +1256,21 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     for name, err in checks.items():
         check(err <= 1e-5, f"data_parallel: {name} off its unsharded value by {err}")
     rcfg = PoseRefineConfig(loss="sinkhorn")
+    pr.clear_cache()
     sp.sinkhorn_points.launches = 0
     t0 = time.perf_counter()
     sharded = sharded_refine_poses(mesh, source, target, rcfg)
     torch.cuda.synchronize(dev)
     refine_s = time.perf_counter() - t0
     refine_k3 = sp.sinkhorn_points.launches
+    graphs = pr.cached_graphs()
+    want = graph_launches(graphs, "sinkhorn_points")
+    check(refine_k3 == want == rcfg.num_steps + 3,
+          f"data_parallel: sharded refinement launched K3 {refine_k3} times, its "
+          f"graphs account for {want}")
     whole = refine_poses(source, target, rcfg)
+    pr.clear_cache()
     refine_err = float((sharded.pose_7d - whole.pose_7d).abs().max())
-    check(refine_k3 == rcfg.num_steps + 1,
-          f"data_parallel: sharded refinement launched K3 {refine_k3} times")
     check(torch.allclose(sharded.pose_7d, whole.pose_7d, rtol=1e-4, atol=1e-5),
           f"data_parallel: sharded refinement off refine_poses by {refine_err}")
     t0 = time.perf_counter()
@@ -1158,11 +1283,15 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
           "world_size": dist.get_world_size(), "mesh": "data=1, slices=1",
           "run": run, "history_max_rel_diff_vs_unmeshed": worst,
           "history_bitwise_equal": bitwise,
-          "ms_per_train_step_in_turns": {"meshed": meshed_ms, "unmeshed": unmeshed_ms,
+          "ms_per_train_step_in_turns": {"median": ms,
+                                         "quartiles": {k: quartiles(v)
+                                                       for k, v in turns.items()},
                                          "epochs": turns},
+          "meshed_per_step_held_to_fused": held,
           "collectives_in_fit": fit_collectives,
           "collectives_per_train_step": step_collectives,
           "sharded_rel_err": checks, "refine_k3_launches": refine_k3,
+          "refine_graphs": graphs,
           "refine_seconds": refine_s, "refine_max_abs_diff": refine_err,
           "scaling": dataclasses.asdict(point), "scaling_seconds": scaling_s})
     dist.destroy_process_group()
@@ -1378,6 +1507,9 @@ def phase_fused_vs_per_step(dev, refs):
 FLOW_METHODS = ("SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY", "GSWD_POLY3",
                 "MGSWD_POLY", "GSWD_CIRC", "MGSWD_CIRC", "ASWD", "DSWD", "GSW_NN",
                 "MGSW_NN")
+# the methods whose step runs an inner Adam ascent (captured since it is a
+# functional Adam): held bit for bit to the per-step loop
+INNER_ASCENT = ("MSWD", "MGSWD_POLY", "MGSWD_CIRC", "ASWD", "DSWD", "MGSW_NN")
 # the JAX package's flow rows (a TPU run, other random streams): the port's
 # W2 must end within 3x of the row at the same iteration
 JAX_FLOW_ROWS = "benchmarks/results_cube.json"
@@ -1417,10 +1549,12 @@ def phase_flow_methods(dev):
     400 iterations), exact W2 every 50: ms per iteration, launches and
     device busy ms of one profiled step, peak memory. Every W2 finite; the
     final W2 within 3x of the JAX row at iteration 400; below the start
-    value for every method whose JAX row ends below it. A method on the
-    fused path (its directions drawn inside the captured step from the
-    registered generator) must give, at iteration 50, the points of 50
-    iterations of the per-step loop from the same start."""
+    value for every method whose JAX row ends below it. Every method runs
+    fused (its directions drawn inside the captured step from the
+    registered generator; the six with an inner Adam ascent through its
+    functional Adam) and must give, at iteration 50, the points of 50
+    iterations of the per-step loop from the same start: within 1e-5, and
+    bit for bit for the six inner-ascent methods."""
     import dataclasses
 
     from shwd_torch.ops.emd_exact import w2_exact
@@ -1454,6 +1588,9 @@ def phase_flow_methods(dev):
                     / cfg.eval_interval * 1e3}
             check(diff <= 1e-5, f"flow {method}: the per-step loop's points at "
                   f"iteration 50 are {diff} off the fused run's")
+            check(diff == 0.0 or method not in INNER_ASCENT,
+                  f"flow {method}: the per-step loop's points at iteration 50 are "
+                  f"{diff} off the fused run's, not bit for bit")
         kernels = profiled_flow_step(cfg, dev, res.clouds, tgt)
         per_iter = res.interval_seconds / cfg.eval_interval * 1e3
         row = rows.get(JAX_ROW_NAME.get(method, method))
@@ -1468,6 +1605,7 @@ def phase_flow_methods(dev):
             "peak_mem_bytes": peak, "flops_per_step": res.flops_per_step,
             "w2_curve": res.eval_values.tolist(), "final_w2": final,
             "jax_row_w2_at_400": want, "wall_seconds": wall}
+        check(res.path == "fused" and res.graph["captured"], f"flow {method}: path {res.path}")
         check(bool(np.isfinite(res.eval_values).all()), f"flow {method}: non-finite W2")
         check(np.isfinite(res.clouds).all(), f"flow {method}: non-finite clouds")
         if want is not None:
@@ -1521,15 +1659,20 @@ def phase_flow_cd_twins(dev):
 def phase_pose_refine(dev, cfg, log_dir):
     """Coarse to fine: the sinkhorn run's best-rotation PCRNet on the first
     train batch (B=128, N=128), then refine_model_output with loss
-    "sinkhorn" (K3 and its envelope gradient: num_steps + 1 launches a
-    call), "cd" and "ssw", 100 steps at lr 0.01 each. The objective must
-    fall, the batch's median rotation error must not rise, every value is
-    finite."""
+    "sinkhorn" (K3 and its envelope gradient), "cd" and "ssw", 100 steps at
+    lr 0.01 each. Fused (the default): the refine step and the final
+    objective captured once (the first call) and replayed from the cache;
+    then per-step and fused calls in turns (per-step, fused, per-step,
+    fused), every one giving the first per-step call's poses, loss trace and
+    per-object losses bit for bit. K3 counted exactly on every call: graph
+    nodes x replays, plus each graph's warm-up run on the capturing call;
+    num_steps + 1 on a per-step call. The objective must fall, the batch's
+    median rotation error must not rise, every value is finite."""
     from shwd_torch.data import RegistrationDataset
     from shwd_torch.ops import sinkhorn_fused as sp
     from shwd_torch.ops.quaternion import rotation_error_deg
     from shwd_torch.train import Trainer
-    from shwd_torch.train.pose_refine import PoseRefineConfig, refine_model_output
+    from shwd_torch.train import pose_refine as pr
     from shwd_torch.train.trainer import _mean_subtract
     from shwd_torch.utils import load_checkpoint
     state = Trainer(cfg).init_state(torch.Generator(device=dev).manual_seed(0))
@@ -1541,30 +1684,61 @@ def phase_pose_refine(dev, cfg, log_dir):
     with torch.no_grad():
         est = state.model(target, source, cfg.pcr_iteration_num)
     before = rotation_error_deg(batch.igt_rotation, est.est_R)
+
+    def call(rcfg, fused):
+        sp.sinkhorn_points.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = pr.refine_model_output(source, target, est.est_R, est.est_t, rcfg, fused=fused)
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0, sp.sinkhorn_points.launches
+
     runs, k3 = {}, 0
     for loss in ("sinkhorn", "cd", "ssw"):
-        rcfg = PoseRefineConfig(loss=loss)
-        seconds = []
-        for _ in range(2):                  # the second call's time is reported too
-            sp.sinkhorn_points.launches = 0
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            res = refine_model_output(source, target, est.est_R, est.est_t, rcfg)
-            torch.cuda.synchronize(dev)
-            seconds.append(time.perf_counter() - t0)
-            launches = sp.sinkhorn_points.launches
+        rcfg = pr.PoseRefineConfig(loss=loss)
+        steps = rcfg.num_steps
+        pr.clear_cache()
+        res, capture_s, first = call(rcfg, True)
+        graphs = pr.cached_graphs()
+        nodes = [g["nodes_by_kernel"].get("sinkhorn_points", 0) for g in graphs]
+        check([g["name"].split(" of")[0] for g in graphs] == ["refine step", "refine final"]
+              and all(g["captured"] for g in graphs), f"pose_refine {loss}: graphs {graphs}")
+        check(nodes == ([1, 1] if loss == "sinkhorn" else [0, 0]),
+              f"pose_refine {loss}: K3 nodes {nodes}")
+        want = nodes[0] * (steps + 1) + nodes[1] * 2        # replays + warm-ups
+        check(first == want, f"pose_refine {loss}: K3 launched {first} on the capturing "
+              f"call, the graphs account for {want}")
+        ref, times = None, {"per_step": [], "fused": []}
+        for path in ("per_step", "fused", "per_step", "fused"):
+            out, secs, launches = call(rcfg, path == "fused")
+            want = (steps + 1) if loss == "sinkhorn" else 0
+            check(launches == want, f"pose_refine {loss} {path}: K3 launched {launches}, "
+                  f"expected {want}")
+            ref = out if ref is None else ref
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  f"pose_refine {loss} {path}: not the per-step call's numbers")
+            times[path].append(secs / steps * 1e3)
+        check(all(torch.equal(a, b) for a, b in zip(res, ref)),
+              f"pose_refine {loss}: the capturing call is not the per-step call's numbers")
+        # the replayed refine step: from a fresh start, so that the ~45
+        # replays of the profile stay inside the loss trace
+        (refinement,) = pr._CACHE.values()
+        refinement.load(source, target, None, None)
+        replay = replay_profile(refinement.captured()[0])
+        replay["idle_share_of_step"] = 1 - replay["busy_ms"] / statistics.median(
+            times["fused"])
         after = rotation_error_deg(batch.igt_rotation, res.est_R)
         losses = res.losses.cpu().numpy()
         runs[loss] = {
-            "ms_per_step": [t / rcfg.num_steps * 1e3 for t in seconds],
-            "k3_launches_per_call": launches, "loss_first": float(losses[0]),
+            "ms_per_step": times, "capturing_call_seconds": capture_s,
+            "graphs": graphs, "k3_launches_capturing_call": first,
+            "replayed_step": replay,
+            "fused_bitwise_equal_to_per_step": True, "loss_first": float(losses[0]),
             "loss_last": float(losses[-1]),
             "median_rot_error_before": float(before.median()),
             "median_rot_error_after": float(after.median()),
             "mean_rot_error_before": float(before.mean()),
             "mean_rot_error_after": float(after.mean())}
-        want = rcfg.num_steps + 1 if loss == "sinkhorn" else 0
-        check(launches == want, f"pose_refine {loss}: K3 launched {launches}, expected {want}")
         check(bool(np.isfinite(losses).all() and torch.isfinite(res.pose_7d).all()
                    and torch.isfinite(res.per_object_loss).all()),
               f"pose_refine {loss}: non-finite values")
@@ -1572,7 +1746,8 @@ def phase_pose_refine(dev, cfg, log_dir):
         check(float(after.median()) <= float(before.median()),
               f"pose_refine {loss}: median rotation error rose "
               f"{float(before.median())} -> {float(after.median())}")
-        k3 += launches if loss == "sinkhorn" else 0
+        k3 += first if loss == "sinkhorn" else 0
+    pr.clear_cache()
     emit({"phase": "pose_refine", "batch": REG_B, "points": REG_N,
           "checkpoint": "best_rot_error_snap", "runs": runs})
     return k3

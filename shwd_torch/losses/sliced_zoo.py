@@ -5,8 +5,9 @@ generalized SWD (polynomial, circular, neural), augmented SWD (ASWD) and
 distributional SWD (DSWD), the comparison methods of the gradient flow.
 
 Every adversarial variant (max-*, ASWD, DSWD, max-GSW-NN) shares
-``adversarial_maximize``: a fresh Adam ascent on detached copies of the
-parameters, returned detached (the JAX package's ``stop_gradient``).
+``adversarial_maximize``: a functional Adam ascent (optax's rule,
+unrolled) on detached copies of the parameters, returned detached (the JAX
+package's ``stop_gradient``); it records into a CUDA graph as it is.
 Learned components (the ASWD mapping, the DSWD transform net, the GSW MLP)
 are explicit parameter trees of tensors: ``{"w", "b"}`` and a tuple of
 them, as in the JAX package.
@@ -66,30 +67,39 @@ def adversarial_maximize(objective: Callable, params, max_iter: int = 10,
     """``max_iter`` Adam ascent steps on ``objective(params)`` (maximised),
     re-projecting the parameters after each step when ``project`` is given.
 
-    ``params`` is a tensor or a tree (dicts, tuples) of tensors; the ascent
-    runs on detached copies under ``enable_grad`` with a fresh
-    ``torch.optim.Adam`` (eps 1e-8 outside the square root, optax's rule),
-    and the result is detached. With ``xs`` (indexed on its leading axis,
-    e.g. per-step random directions) the objective is called as
+    ``params`` is a tensor or a tree (dicts, tuples) of tensors; the result
+    is a detached tree of new tensors. With ``xs`` (indexed on its leading
+    axis, e.g. per-step random directions) the objective is called as
     ``objective(params, x=xs[i])`` and ``len(xs)`` steps run.
+
+    The Adam is functional and follows optax's ``scale_by_adam``: moments
+    that start at zero inside the call, ``m / (1 - b1^t)`` over
+    ``sqrt(v / (1 - b2^t)) + eps`` (eps 1e-8 outside the square root). The
+    steps are unrolled in Python, as ``lax.scan`` unrolls at trace time, and
+    the bias corrections are Python floats of the step index: no step count
+    lives on the host or the device, so the ascent records into a CUDA graph
+    as it is.
     """
+    b1, b2 = betas
     leaves, spec = pytree.tree_flatten(params)
-    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
-    opt = torch.optim.Adam(leaves, lr=lr, betas=tuple(betas), eps=1e-8)
+    leaves = [t.detach() for t in leaves]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
     steps = max_iter if xs is None else len(xs)
-    with torch.enable_grad():
-        for i in range(steps):
-            q = pytree.tree_unflatten(leaves, spec)
-            obj = objective(q) if xs is None else objective(q, x=xs[i])
-            grads = torch.autograd.grad(-obj, leaves)
-            for t, g in zip(leaves, grads):
-                t.grad = g
-            opt.step()
+    for i in range(steps):
+        with torch.enable_grad():
+            q = [t.detach().requires_grad_(True) for t in leaves]
+            tree = pytree.tree_unflatten(q, spec)
+            obj = objective(tree) if xs is None else objective(tree, x=xs[i])
+            grads = torch.autograd.grad(-obj, q)
+        bc1, bc2 = 1.0 - b1 ** (i + 1), 1.0 - b2 ** (i + 1)
+        with torch.no_grad():
+            mu = [(1.0 - b1) * g + b1 * m for g, m in zip(grads, mu)]
+            nu = [(1.0 - b2) * (g * g) + b2 * v for g, v in zip(grads, nu)]
+            leaves = [t + (m / bc1) / (torch.sqrt(v / bc2) + 1e-8) * -lr
+                      for t, m, v in zip(leaves, mu, nu)]
             if project is not None:
-                with torch.no_grad():
-                    new = pytree.tree_flatten(project(pytree.tree_unflatten(leaves, spec)))[0]
-                    for t, v in zip(leaves, new):
-                        t.copy_(v)
+                leaves = pytree.tree_flatten(project(pytree.tree_unflatten(leaves, spec)))[0]
     return pytree.tree_unflatten([t.detach() for t in leaves], spec)
 
 

@@ -17,9 +17,11 @@ jitted steps as one program; here one step is captured as a CUDA graph
 (that warm-up step is the capture's warm-up, on the capture's stream) and
 replayed ``eval_interval`` times per interval, the learning-rate schedule
 stepped between replays. On the CPU the same step function is called
-directly. Methods whose step makes a fresh optimizer or rebinds its net
-(``_PER_STEP``) and SHWD on the host ``exact`` solver run op by op;
-``flow_path`` says which path a config takes.
+directly. Every method is captured: the adversarial ones ascend with the
+functional Adam of ``sliced_zoo.adversarial_maximize`` and write their
+learned net back into the state's own tensors. Only SHWD on the host
+``exact`` solver runs op by op; ``flow_path`` says which path a config
+takes.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import _kernels
 from ..device import resolve_device
@@ -102,9 +105,6 @@ _PLAIN = ("SWD", "MSWD", "SSWD", "SSWD_W1", "CD", "W2", "GSWD_POLY", "GSWD_POLY3
           "MGSWD_POLY", "GSWD_CIRC", "MGSWD_CIRC")
 # the methods that keep a learned net across steps
 _STATEFUL = ("ASWD", "DSWD", "GSW_NN", "MGSW_NN")
-# the methods whose step builds a fresh (not capturable) Adam for its inner
-# ascent, and returns a new net: dispatched op by op
-_PER_STEP = ("MSWD", "MGSWD_POLY", "MGSWD_CIRC", "ASWD", "DSWD", "MGSW_NN")
 
 
 def flow_path(cfg: "FlowConfig", fused: bool = True) -> str:
@@ -112,8 +112,6 @@ def flow_path(cfg: "FlowConfig", fused: bool = True) -> str:
     'per_step: <reason>'."""
     if not fused:
         return "per_step: fused=False"
-    if cfg.method in _PER_STEP:
-        return f"per_step: {cfg.method}'s step makes a fresh optimizer"
     if cfg.method == "SHWD" and cfg.shwd_solver == "exact":
         return "per_step: the exact solver runs on the host"
     return "fused"
@@ -197,8 +195,8 @@ def _stateful_init(cfg: FlowConfig, gen):
 
 
 def _stateful_loss(cfg: FlowConfig, pts, target, gen, phi, draws):
-    """(loss, new phi) of the methods with a learned net; a fresh inner
-    Adam runs in every step."""
+    """(loss, new phi) of the methods with a learned net; an inner Adam
+    ascent from zero moments runs in every step (not GSW_NN)."""
     L, m = cfg.num_projections, cfg.method
     if m == "ASWD":
         return sliced_zoo.augmented_sliced_wasserstein_distance(
@@ -251,8 +249,14 @@ def _make_loss_step(cfg: FlowConfig, device: torch.device):
                     "phi": _stateful_init(cfg, generator) if phi is None else phi}
 
         def step(points, target, state, draws=None):
-            loss, state["phi"] = _stateful_loss(cfg, points, target, state["gen"],
-                                                state["phi"], draws or {})
+            loss, phi = _stateful_loss(cfg, points, target, state["gen"], state["phi"],
+                                       draws or {})
+            if phi is not state["phi"]:
+                # in place: a replay reads and writes the same buffers
+                with torch.no_grad():
+                    for old, new in zip(pytree.tree_leaves(state["phi"]),
+                                        pytree.tree_leaves(phi)):
+                        old.copy_(new)
             return _descend(points, state, loss)
 
         return init_state, step

@@ -24,8 +24,8 @@ How the port differs from the JAX package's functional trainer:
   inputs, so both paths see the same random stream. The validation pass
   has a graph per batch shape (the full batch and the tail). The rule is
   the JAX package's ``fused_epoch and not nan_guard``, less what a graph
-  cannot hold: the ``exact`` solver (host network simplex), SHWD's
-  ``refresh`` (a new phi every call) and a mesh take the per-step loop
+  cannot hold: the ``exact`` solver (host network simplex) and SHWD's
+  ``refresh`` (a new phi every call) take the per-step loop
   (``execution_path`` says which, and every history row records it). On
   the CPU the fused path calls the same step function on the same static
   buffers, without capture;
@@ -39,11 +39,17 @@ How the port differs from the JAX package's functional trainer:
   fit makes the data group active (``parallel.mesh.data_parallel``) and
   those ops reduce over it. The ``slices`` axis holds replicas, as in the
   JAX trainer. Only rank 0 writes files; every rank returns the same
-  history.
+  history. Under a mesh the fused path holds the rank's rows as its static
+  inputs and records the step's collectives (the criterion's on the data
+  group, the gradient bucket's all-reduce) into the graph; the warm-up
+  runs each of them once first, so NCCL's communicators exist before the
+  capture. The epoch's loss and the validation sums are reduced over the
+  group outside the graphs, once per pass, as on the per-step path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import signal
 import time
@@ -171,8 +177,6 @@ class Trainer:
             return "per_step: fused_epoch=False"
         if cfg.nan_guard:
             return "per_step: nan_guard reads every loss on the host"
-        if self.mesh is not None:
-            return "per_step: a mesh"
         if (cfg.criterion in ("w_cos", "w1_cos", "pseudo_w_cos")
                 and cfg.shwd.transport.solver == "exact"):
             return "per_step: the exact solver runs on the host"
@@ -235,7 +239,8 @@ class Trainer:
         if self._fused.get("state") is not state:
             self._fused = {"state": state, "graphs": {},
                            "loss_sum": torch.zeros((), device=self.device),
-                           "val_sums": torch.zeros(3, device=self.device)}
+                           "val_sums": torch.zeros(3, device=self.device),
+                           "val_split": torch.zeros(3, device=self.device)}
             if self.device.type == "cuda":
                 # Adam's lazily made state must exist before a capture
                 for opt in (state.opt, getattr(state.crit_state, "opt", None)):
@@ -250,7 +255,7 @@ class Trainer:
         fused = self._graphs_for(state)
         graph = fused["graphs"].get(key)
         if graph is None:
-            acc = (fused["loss_sum"], fused["val_sums"])
+            acc = (fused["loss_sum"], fused["val_sums"], fused["val_split"])
 
             def warmup(*inputs):
                 with preserved(state, acc):
@@ -265,9 +270,10 @@ class Trainer:
         return graph
 
     def _train_one_epoch_fused(self, state, dataset, indices, generator, rng):
-        """The per-step loop's batches (the same shuffle and draws), each
-        through the captured train step, which adds its loss to a static
-        device scalar read once at the end."""
+        """The per-step loop's batches (the same shuffle and draws), this
+        rank's rows of each through the captured train step, which adds its
+        loss to a static device scalar, reduced over the data group and read
+        once at the end."""
         fused = self._graphs_for(state)
         loss_sum = fused["loss_sum"]
         loss_sum.zero_()
@@ -282,26 +288,10 @@ class Trainer:
         count = 0
         for batch in dataset.batches(generator, indices, self.cfg.batch_size,
                                      shuffle=True, rng=rng):
-            self._step_graph(state, ("train", gate), step, batch)(*batch)
+            rows = self._rows(batch)
+            self._step_graph(state, ("train", gate), step, rows)(*rows)
             count += 1
-        return state, float(loss_sum) / max(count, 1)
-
-    def _eval_one_epoch_fused(self, state, dataset, indices, generator):
-        """The validation batches, each through the captured eval step of
-        its shape, adding its weighted means to a static device vector."""
-        sums = self._graphs_for(state)["val_sums"]
-        sums.zero_()
-        n_items = 0
-        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
-                                     shuffle=False, drop_remainder=False):
-            b = batch.source.shape[0]
-
-            def step(*inputs, b=b):
-                sums.add_(self._eval_step(state, RegistrationBatch(*inputs)) * b)
-
-            self._step_graph(state, ("eval", b), step, batch)(*batch)
-            n_items += b
-        return sums, n_items
+        return state, float(pmesh.reduce_values(loss_sum, self._reduce)) / max(count, 1)
 
     # -- epochs ----------------------------------------------------------------
 
@@ -343,39 +333,44 @@ class Trainer:
         there is nothing to evaluate. Under a mesh, a batch that divides over
         ``data`` is split and reduced at the end of the pass; one that does
         not is computed whole on every rank (the JAX package's replicated
-        fallback).
+        fallback). On the fused path each batch shape has its captured eval
+        step (the whole batch's captured with no data group active), adding
+        into static device vectors.
         """
-        if self.execution_path() == "fused":
-            sums, n_items = self._eval_one_epoch_fused(state, dataset, indices, generator)
+        fused = self.execution_path() == "fused"
+        if fused:
+            acc = self._graphs_for(state)
+            sums, split = acc["val_sums"].zero_(), acc["val_split"].zero_()
         else:
-            sums, n_items = self._eval_per_step(state, dataset, indices, generator)
+            sums, split = (torch.zeros(3, device=self.device) for _ in range(2))
+        n_items = 0
+        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                     shuffle=False, drop_remainder=False):
+            b = batch.source.shape[0]
+            divides = self.mesh is not None and b % self._n_data == 0
+            rows, into = (self._rows(batch), split) if divides else (batch, sums)
+
+            def step(*inputs, b=b, into=into):
+                into.add_(self._eval_step(state, RegistrationBatch(*inputs)) * b)
+
+            with contextlib.nullcontext() if divides else pmesh.data_parallel(None):
+                if fused:
+                    self._step_graph(state, ("eval", b), step, rows)(*rows)
+                else:
+                    step(*rows)
+            n_items += b
         if n_items == 0:
             raise ValueError(
                 "validation set produced no batches: check val_split / "
                 "batch_size (eval never drops remainders, so this means the "
                 "val index set itself is empty)")
-        loss, rot, trans = (sums / n_items).tolist()
-        return loss, rot, trans
-
-    def _eval_per_step(self, state, dataset, indices, generator):
-        sums = torch.zeros(3, device=self.device)
-        split = torch.zeros(3, device=self.device)
-        n_items = 0
-        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
-                                     shuffle=False, drop_remainder=False):
-            b = batch.source.shape[0]
-            if self.mesh is not None and b % self._n_data == 0:
-                split = split + self._eval_step(state, self._rows(batch)) * b
-            else:
-                with pmesh.data_parallel(None):
-                    sums = sums + self._eval_step(state, batch) * b
-            n_items += b
         if self.mesh is not None:
             split = pmesh.reduce_values(split, "mean", self._data_group)
             if self._reduce == "sum":       # a summed loss adds up over ranks
                 split[0] *= self._n_data
             sums = sums + split
-        return sums, n_items
+        loss, rot, trans = (sums / n_items).tolist()
+        return loss, rot, trans
 
     # -- full run ----------------------------------------------------------------
 

@@ -13,7 +13,8 @@ one replay per step. ``StepGraph`` holds:
 - the capture, on that stream, with the step's ``torch.Generator``s
   registered so that every replay draws what the eager step would;
 - ``replay()`` per call, adding each kernel wrapper's nodes to its launch
-  count (a replay calls no Python wrapper);
+  count and the step's collectives to ``parallel.mesh.collective_calls``
+  (a replay calls no Python wrapper);
 - on the CPU, a direct call of the same function on the same static
   buffers: the same path without capture.
 
@@ -31,6 +32,8 @@ from typing import Callable, Sequence
 
 import torch
 from torch import nn
+
+from ..parallel import mesh as pmesh
 
 _KERNEL_NODE = 0          # CUgraphNodeType: CU_GRAPH_NODE_TYPE_KERNEL
 
@@ -151,6 +154,7 @@ class StepGraph:
         self.replays = 0
         self.kernel_nodes: int | None = None
         self.nodes_by_kernel: dict[str, int] = {}
+        self.collectives = 0
         self.capture_seconds = 0.0
 
     @property
@@ -179,6 +183,7 @@ class StepGraph:
             graph.register_generator_state(g)
         wrappers = kernel_wrappers()
         before = {k: w.launches for k, w in wrappers.items()}
+        collectives = pmesh.collective_calls
         try:
             with torch.cuda.graph(graph, stream=stream):
                 outputs = self.fn(*self.inputs)
@@ -186,10 +191,13 @@ class StepGraph:
             raise RuntimeError(f"capturing step {self.name!r} as a CUDA graph "
                                f"failed: {err}") from err
         finally:
-            # the capture recorded the wrappers' kernels and launched none
+            # the capture recorded the wrappers' kernels and the collectives
+            # and launched none
             for k, w in wrappers.items():
                 self.nodes_by_kernel[k] = w.launches - before[k]
                 w.launches = before[k]
+            self.collectives = pmesh.collective_calls - collectives
+            pmesh.collective_calls = collectives
         self.nodes_by_kernel = {k: v for k, v in self.nodes_by_kernel.items() if v}
         kinds = graph_node_types(graph)
         self.kernel_nodes = None if kinds is None else kinds.count(_KERNEL_NODE)
@@ -211,12 +219,13 @@ class StepGraph:
             wrappers = kernel_wrappers()
             for k, n in self.nodes_by_kernel.items():
                 wrappers[k].launches += n
+        pmesh.collective_calls += self.collectives
         return self.outputs
 
     def stats(self) -> dict:
-        """Name, replays (calls on the CPU), the graph's kernel nodes and
-        each kernel wrapper's nodes per replay, and the seconds the warm-up
-        and capture took."""
+        """Name, replays (calls on the CPU), the graph's kernel nodes, each
+        kernel wrapper's nodes and the collectives per replay, and the
+        seconds the warm-up and capture took."""
         return {"name": self.name, "captured": self.captured, "replays": self.replays,
                 "kernel_nodes": self.kernel_nodes, "nodes_by_kernel": self.nodes_by_kernel,
-                "capture_seconds": self.capture_seconds}
+                "collectives": self.collectives, "capture_seconds": self.capture_seconds}

@@ -235,31 +235,35 @@ def test_path_rule(tmp_path, kw, path):
 
 
 def test_path_rule_mesh(tmp_path):
-    """A mesh takes the per-step loop (its collectives are not captured)."""
+    """A mesh takes the fused path: its collectives are captured with the
+    step."""
     tr = _rule(tmp_path)
     tr.mesh = object()
-    assert tr.execution_path() == "per_step: a mesh"
+    assert tr.execution_path() == "fused"
 
 
 @pytest.mark.parametrize("method,fused", [
     ("SHWD", True), ("SWD", True), ("SSWD", True), ("CD", True), ("W2", True),
     ("GSWD_POLY", True), ("GSWD_CIRC", True), ("GSW_NN", True),
-    ("MSWD", False), ("MGSWD_POLY", False), ("MGSWD_CIRC", False), ("ASWD", False),
-    ("DSWD", False), ("MGSW_NN", False)])
+    ("MSWD", True), ("MGSWD_POLY", True), ("MGSWD_CIRC", True), ("ASWD", True),
+    ("DSWD", True), ("MGSW_NN", True)])
 def test_flow_path_rule(method, fused):
-    """run_flow replays a captured step unless the method's step makes a
-    fresh optimizer (its inner ascent) or the solver is the host's."""
+    """run_flow replays a captured step for every method (the inner
+    ascents are functional Adams); only the host's exact solver and
+    fused=False take the per-step loop."""
     path = tf.flow_path(tf.FlowConfig(method=method))
     assert (path == "fused") == fused
     assert tf.flow_path(tf.FlowConfig(shwd_solver="exact")).startswith("per_step")
     assert tf.flow_path(tf.FlowConfig(), fused=False) == "per_step: fused=False"
 
 
-@pytest.mark.parametrize("method", ["SHWD", "SWD"])
+@pytest.mark.parametrize("method", ["SHWD", "SWD", "MSWD", "MGSWD_POLY", "MGSWD_CIRC",
+                                    "ASWD", "DSWD", "MGSW_NN"])
 def test_fused_flow_equals_the_per_step_flow_on_the_cpu(method):
     """run_flow's fused path on the CPU (the step called on the static path,
     the schedule stepped between calls) gives the per-step run's points and
-    metric bit for bit, with a decaying learning rate."""
+    metric bit for bit, with a decaying learning rate; the adversarial
+    methods run their inner ascents and carry their nets in place."""
     from shwd_torch.ops.sphere_sampling import sample_cube_surface
     rng = np.random.default_rng(0)
     src = sample_cube_surface(rng, 48).numpy()

@@ -880,3 +880,172 @@ def test_captured_flow_methods_match_the_per_step_loop(cuda, method):
     step = fd.run_flow(src, tgt, cfg, fused=False)
     assert fused.path == "fused"
     np.testing.assert_allclose(fused.clouds, step.clouds, rtol=0, atol=1e-6)
+
+
+# -- the last per-step paths captured: refinement, the inner ascents, the mesh --------
+
+def _refine_problem(cuda):
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.normal(size=(128, 128, 3)), dtype=torch.float32, device=cuda)
+    tgt = src @ torch.as_tensor([[0.98, -0.2, 0.0], [0.2, 0.98, 0.0], [0.0, 0.0, 1.0]],
+                                dtype=torch.float32, device=cuda) + 0.05
+    return src, tgt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["sinkhorn", "cd", "ssw"])
+def test_captured_refinement_matches_the_per_step_path(cuda, loss):
+    """refine_poses at the registration batch (B=128, N=128, 30 steps): the
+    cached graphs replayed (a second call, under sync-debug "error": no host
+    sync) give the per-step path's poses, loss trace and per-object losses
+    bit for bit (ssw: the frames drawn from the registered generator, which
+    ends where the per-step draws leave it); K3 counts its graph nodes per
+    replay: 1 in the step graph, 1 in the final one."""
+    from shwd_torch.train import pose_refine as pr
+
+    src, tgt = _refine_problem(cuda)
+    cfg = pr.PoseRefineConfig(loss=loss, num_steps=30)
+    pr.clear_cache()
+    gens = [torch.Generator(device=cuda).manual_seed(4) for _ in range(2)]
+    pr.refine_poses(src, tgt, cfg, torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    k0 = tp.sinkhorn_points.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = pr.refine_poses(src, tgt, cfg, gens[0])
+        k_fused = tp.sinkhorn_points.launches - k0
+        step = pr.refine_poses(src, tgt, cfg, gens[1], fused=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(fused, step):
+        assert torch.equal(a, b)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    stats = pr.cached_graphs()
+    assert all(s["captured"] for s in stats) and [s["replays"] for s in stats] == [60, 2]
+    want = [1, 1] if loss == "sinkhorn" else [0, 0]
+    assert [s["nodes_by_kernel"].get("sinkhorn_points", 0) for s in stats] == want
+    assert k_fused == want[0] * cfg.num_steps + want[1]
+    assert float(fused.losses[-1]) < float(fused.losses[0])
+    pr.clear_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["MSWD", "MGSWD_POLY", "MGSWD_CIRC", "ASWD", "DSWD",
+                                    "MGSW_NN"])
+def test_captured_inner_ascent_methods_match_the_per_step_loop(cuda, method):
+    """The six methods with an inner ascent (the functional Adam, the nets
+    written back in place) at the Flow_cube width (1200 points): the fused
+    run's points at iteration 50 equal the per-step loop's bit for bit."""
+    from shwd_torch.ops.sphere_sampling import sample_cube_surface
+    from shwd_torch.train import flow_driver as fd
+
+    rng = np.random.default_rng(0)
+    src = sample_cube_surface(rng, 1200).numpy()
+    tgt = sample_cube_surface(rng, 1200, biased=True).numpy()
+    cfg = fd.FlowConfig(method=method, num_iterations=50, eval_interval=50)
+    fused = fd.run_flow(src, tgt, cfg, eval_fn=lambda p, t: 0.0)
+    step = fd.run_flow(src, tgt, cfg, eval_fn=lambda p, t: 0.0, fused=False)
+    assert fused.path == "fused" and fused.graph["captured"]
+    assert fused.graph["replays"] == 50
+    assert np.array_equal(fused.clouds, step.clouds)
+    assert float(np.abs(fused.clouds - src).max()) > 0.01
+
+
+@pytest.mark.gpu
+def test_meshed_fused_fit_equals_the_unmeshed_fused_fit(cuda, tmp_path):
+    """A world-size-1 NCCL mesh (mesh_data=1): the fused fit captures the
+    step with its collectives (phi's inner gradients and the gradient
+    bucket, 2 a step, counted per replay) and gives the un-meshed fused
+    fit's history and weights bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from shwd_torch.data import DatasetConfig, RegistrationDataset, TransformConfig
+    from shwd_torch.parallel import mesh as pmesh
+    from shwd_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(
+        experiment="mesh", log_dir=str(tmp_path), criterion="w_cos", batch_size=128,
+        num_epochs=2, seed=0, checkpoint_flush_every=0,
+        dataset=DatasetConfig(source_point_num=128, target_point_num=128,
+                              num_synthetic=640, synthetic_kinds=("composite",),
+                              val_split=0.3, cache_dir=str(tmp_path / "mc"),
+                              transform=TransformConfig(noise_sigma=0.02)),
+        **_sinkhorn_kw("sinkhorn"))
+    out = {}
+    try:
+        for mesh_data in (None, 1):
+            c = dataclasses.replace(cfg, mesh_data=mesh_data, experiment=f"m{mesh_data}")
+            trainer = Trainer(c)
+            pmesh.collective_calls = 0
+            res = trainer.fit(RegistrationDataset(c.dataset, "train"), verbose=False)
+            out[mesh_data] = (trainer, res, pmesh.collective_calls)
+        trainer, meshed, calls = out[1]
+        assert dist.get_backend() == "nccl" and trainer._n_data == 1
+        assert meshed["path"] == "fused"
+        _, plain, _ = out[None]
+        keys = ("train_loss", "val_loss", "rot_error", "trans_error")
+        assert [[r[k] for k in keys] for r in meshed["history"]] == \
+            [[r[k] for k in keys] for r in plain["history"]]
+        for a, b in zip(meshed["state"].model.parameters(),
+                        plain["state"].model.parameters()):
+            assert torch.equal(a, b)
+        train = [g for g in meshed["graphs"] if g["name"].startswith("train")]
+        assert len(train) == 1 and train[0]["captured"] and train[0]["collectives"] == 2
+        # graphs: collectives x (replays + warm-up); per epoch the loss and the
+        # validation sums are reduced once outside them
+        want = sum(g["collectives"] * (g["replays"] + 1) for g in meshed["graphs"])
+        assert calls == want + 2 * cfg.num_epochs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def adam_step_ulps(a: torch.Tensor, b: torch.Tensor, lr: float) -> tuple[float, float]:
+    """(largest |a - b| in ulps of b, largest |a - b| in ulps of max(|b|,
+    lr)): the second is the rounding of an Adam update of size about lr,
+    which a parameter that the update nearly cancels would inflate in the
+    first."""
+    diff = (a - b).abs().double()
+    inf = torch.tensor(float("inf"), device=b.device)
+    scale = torch.maximum(b.abs(), torch.full_like(b, lr))
+    raw = diff / (torch.nextafter(b.abs(), inf) - b.abs()).double()
+    scaled = diff / (torch.nextafter(scale, inf) - scale).double()
+    return float(raw.max()), float(scaled.max())
+
+
+@pytest.mark.gpu
+def test_capturable_adam_step_against_the_eager_one(cuda):
+    """Three torch_adam steps with capturable=True (step count and bias
+    corrections on the card) and with capturable=False (on the host) on the
+    same parameters and gradients (the flow's points, 1200 x 3, lr 0.01, and
+    phi-like weights with coupled decay 0.1, lr 1e-3). The capturable Adam
+    forms 1 - b2^t in f32 on the card, the host one in f64: at t = 3 that
+    is 0.003 with ~1e-5 of relative error, so the updates differ by about
+    that much, hundreds of ulps of their scale (printed), not by the
+    last-place rounding of the arithmetic. Held: the updates agree to 1e-4
+    of the largest one."""
+    from shwd_torch.utils.optim import torch_adam
+
+    rng = np.random.default_rng(0)
+    worst = {}
+    for name, shape, lr, wd in (("points", (1200, 3), 0.01, 0.0),
+                                ("phi", (64, 64), 1e-3, 0.1)):
+        w = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+        g = torch.as_tensor(rng.normal(size=shape) * 1e-3, dtype=torch.float32,
+                            device=cuda)
+        out = []
+        for capturable in (True, False):
+            p = w.clone().requires_grad_(True)
+            opt = torch_adam([p], lr, wd, capturable=capturable)
+            for _ in range(3):
+                p.grad = g.clone()
+                opt.step()
+            out.append(p.detach())
+        ucap, uhost = (o.double() - w.double() for o in out)
+        rel = float((ucap - uhost).abs().max() / uhost.abs().max())
+        worst[name] = adam_step_ulps(out[0], out[1], lr) + (rel,)
+        assert rel <= 1e-4, (name, rel)
+    print("capturable vs host-side Adam after 3 steps: largest difference in ulps "
+          "of the parameter, in ulps of the update's scale, relative to the "
+          "largest update:", worst)

@@ -137,6 +137,35 @@ def fit(rank, world, cfg_json, mesh_data, mesh_slices):
     return {"history": hist, "wrote": wrote}
 
 
+def fit_both_paths(rank, world, cfg_jsons):
+    """Each config fitted on a ``data`` mesh of the world, with fused_epoch
+    True and then False: per config and path, the path the trainer took,
+    the history, the collectives issued through ``parallel.mesh`` and the
+    final model parameters."""
+    import json
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.parallel import mesh as pmesh
+    from shwd_torch.train import Trainer, config_from_dict
+    out = []
+    for cfg_json in cfg_jsons:
+        runs = {}
+        for fused in (True, False):
+            cfg = dataclasses.replace(config_from_dict(json.loads(cfg_json)),
+                                      mesh_data=world, fused_epoch=fused,
+                                      experiment=f"rank{rank}_{fused}")
+            trainer = Trainer(cfg, device="cpu")
+            ds = RegistrationDataset(cfg.dataset, "train", device="cpu")
+            pmesh.collective_calls = 0
+            res = trainer.fit(ds, verbose=False)
+            runs[fused] = {"path": trainer.execution_path(), "history": res["history"],
+                           "collectives": pmesh.collective_calls,
+                           "graphs": res["graphs"],
+                           "params": [p.detach().clone()
+                                      for p in res["state"].model.parameters()]}
+        out.append(runs)
+    return out
+
+
 def fits(rank, world, cfg_jsons, mesh_data, mesh_slices):
     """``fit`` of each config in turn."""
     return [fit(rank, world, c, mesh_data, mesh_slices) for c in cfg_jsons]
