@@ -62,6 +62,14 @@ Phases, each printing one JSON line:
      back, and over the sinkhorn run the train loss and the validation
      loss must fall and the validation rotation error must end on the
      plateau of about 40 deg that the JAX trainer reaches on this bank;
+  5a. registration_learns: the w_cos row of tools/registration_rows_torch.py
+     (the JAX package's 2048-shape bank, 12 train steps an epoch, its exact
+     knobs), seed 0, 150 epochs, fused: the best validation rotation error
+     must reach 10 deg (the JAX row's curve is at 6.6 deg by epoch 100),
+     the last quarter's translation error stay under 0.02, and evaluate on
+     the test split at best_rot_error_snap be finite and below epoch 1's
+     error; K3 counted as graph nodes x replays plus the warm-ups; the
+     curve every 10 epochs, ms per train step, s per epoch, peak memory;
   6. evaluate: shwd_torch.train.evaluate.evaluate on the sinkhorn run's
      best-rotation checkpoint, the test split, on the card by default;
      both success curves non-decreasing to 1.0, five thresholds recounted
@@ -115,7 +123,8 @@ then the kernel table ({"kernels": [...]}; "launches" counts the kernel's
 launches on the main path, each wrapper call once and, on a fused path, each
 graph replay once per node of that kernel; "launches_pseudo" and
 "launches_refine" K3's on
-the pseudo_w_cos run and the sinkhorn refinement, "launches_data_parallel"
+the pseudo_w_cos run and the sinkhorn refinement, "launches_learns" K3's
+in phase registration_learns, "launches_data_parallel"
 K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 "launches_cd_twins" K4's
 on the twins, "launches_per_call" is phase 8's count), the
@@ -161,6 +170,13 @@ SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # turned by about 160 deg, at a higher loss.
 REG_SEED = 0
 REG_PLATEAU_DEG = 50.0
+# Phase registration_learns: the w_cos row of tools/registration_rows_torch.py
+# (the JAX package's 2048-shape bank, 12 train steps an epoch), seed
+# REG_SEED, cut to LEARN_EPOCHS; the JAX row's curve is at 6.6 deg by
+# epoch 100.
+LEARN_EPOCHS = 150
+LEARN_ROT_DEG = 10.0              # best validation rotation error
+LEARN_TRANS = 0.02                # last-quarter mean validation translation error
 
 
 def emit(obj) -> None:
@@ -932,7 +948,7 @@ def kernel_wrappers():
     return wrappers()
 
 
-def run_registration(dev, cfg):
+def run_registration(dev, cfg, n_val_expected=REG_VAL):
     """``Trainer.fit`` on the card with the kernels' counts set to 0 just
     before and read just after; every metric must be finite and every best
     checkpoint must load back. Returns (summary, trainer, fit result,
@@ -957,8 +973,8 @@ def run_registration(dev, cfg):
     hist = res["history"]
     steps = sum(r["train_steps"] for r in hist)
     n_val = int(len(ds) * cfg.dataset.val_split)
-    check(n_val == REG_VAL, f"registration {label}: {n_val} validation shapes, "
-          f"the kernel checks assume {REG_VAL}")
+    check(n_val == n_val_expected, f"registration {label}: {n_val} validation shapes, "
+          f"the kernel checks assume {n_val_expected}")
     eval_batches = len(hist) * -(-n_val // cfg.batch_size)
     step_ms = [r["train_seconds"] / r["train_steps"] * 1e3 for r in hist[1:]]
     q = max(len(hist) // 4, 1)
@@ -1084,6 +1100,71 @@ def phase_registration(dev, log_dir):
           "registration: val translation error did not fall")
     return ({"sinkhorn_points": sink["launches"]["sinkhorn_points"],
              "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run, runs)
+
+
+def row_harness():
+    """tools/registration_rows_torch.py, the rows' configs."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "registration_rows_torch.py"
+    spec = importlib.util.spec_from_file_location("registration_rows_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_registration_learns(dev, log_dir):
+    """The w_cos row's config (the 2048-shape bank: 1639 train shapes, 12
+    steps an epoch; 409 val shapes, 3 x 128 + 25; 512 test), seed
+    REG_SEED, LEARN_EPOCHS epochs, fused: the best validation rotation
+    error must reach LEARN_ROT_DEG, the last quarter's translation error
+    stay under LEARN_TRANS, and evaluate on the test split at
+    best_rot_error_snap be finite and below the first epoch's error. K3
+    twice per train step and once per eval batch, as graph nodes x replays
+    plus each graph's warm-up. Returns K3's launches."""
+    import dataclasses
+    from shwd_torch.train.evaluate import evaluate
+    cfg = row_harness().row_config("w_cos", REG_SEED, str(log_dir), LEARN_EPOCHS)
+    cfg = dataclasses.replace(cfg, experiment="registration_learns")
+    n_val = int(cfg.dataset.num_synthetic * cfg.dataset.val_split)
+    run, _, res, _ = run_registration(dev, cfg, n_val_expected=n_val)
+    hist = res["history"]
+    check_fused_launches("registration_learns", run, "sinkhorn_points", 2, 1)
+    want = 2 * run["train_steps"] + run["eval_batches"] + 2 + (len(run["graphs"]) - 1)
+    check(run["launches"]["sinkhorn_points"] == want,
+          f"registration_learns: K3 launched {run['launches']['sinkhorn_points']} "
+          f"times, expected {want}")
+    t0 = time.perf_counter()
+    ev = evaluate(cfg, checkpoint=f"{log_dir}/{cfg.experiment}/models/best_rot_error_snap",
+                  split="test")
+    eval_s = time.perf_counter() - t0
+    q = max(len(hist) // 4, 1)
+    trans_last_quarter = float(np.mean([r["trans_error"] for r in hist[-q:]]))
+    emit({"phase": "registration_learns", "row": "w_cos", "seed": cfg.seed,
+          "epochs": len(hist), "train_steps_per_epoch": hist[0]["train_steps"],
+          "val_shapes": n_val, "best_rot_error": run["best"]["rot"],
+          "best_rot_epoch": hist[int(np.argmin([r["rot_error"] for r in hist]))]["epoch"],
+          "best_trans_error": run["best"]["trans"],
+          "rot_curve_every10": [r["rot_error"] for r in hist[::10]],
+          "trans_curve_every10": [r["trans_error"] for r in hist[::10]],
+          "val_trans_error_last_quarter": trans_last_quarter,
+          "ms_per_train_step": run["ms_per_train_step"],
+          "s_per_epoch": run["wall_seconds"] / len(hist),
+          "peak_mem_bytes": run["peak_mem_bytes"],
+          "k3_launches": run["launches"]["sinkhorn_points"],
+          "k3_launches_expected": want,
+          "graphs": [{k: g[k] for k in ("name", "replays")} for g in run["graphs"]],
+          "test_mean_rot_error": ev.mean_rot_error,
+          "test_mean_trans_error": ev.mean_trans_error, "evaluate_seconds": eval_s})
+    check(run["best"]["rot"] <= LEARN_ROT_DEG,
+          f"registration_learns: best val rotation error {run['best']['rot']} deg "
+          f"in {len(hist)} epochs, above {LEARN_ROT_DEG}")
+    check(trans_last_quarter <= LEARN_TRANS,
+          f"registration_learns: last-quarter translation error {trans_last_quarter}")
+    check(np.isfinite(ev.mean_rot_error) and np.isfinite(ev.mean_trans_error)
+          and ev.mean_rot_error < hist[0]["rot_error"],
+          f"registration_learns: held-out rotation error {ev.mean_rot_error} against "
+          f"{hist[0]['rot_error']} at epoch 1")
+    return run["launches"]["sinkhorn_points"]
 
 
 def phase_evaluate(dev, cfg, res, log_dir):
@@ -1863,6 +1944,7 @@ def main() -> int:
         reg_launches, (sink_cfg, sink_res), reg_runs = phase_registration(dev, log_dir)
         k2["launches_registration"] = reg_launches["auction_assignment"]
         k3["launches"] = reg_launches["sinkhorn_points"]
+        k3["launches_learns"] = phase_registration_learns(dev, log_dir)
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
         k3["launches_data_parallel"] = phase_data_parallel(dev, log_dir, sink_cfg, sink_res)
         del sink_res

@@ -13,6 +13,13 @@ is the method's or the port's.
 
     python tests/compare_registration_curves.py [--epochs 40] [--side both]
         [--seeds 0 1 2] [--device cpu|cuda] [--plain-route]
+        [--row w_cos --seed 1234]
+
+``--row`` takes instead the config of one row of
+``tools/registration_rows_torch.py`` (its bank, ``modelnet_root`` and exact
+knobs; ``--solver`` is ignored then), both sides from the same config,
+with ``--seed`` (default: the row's) for its seed; on the 2048-shape bank
+an epoch takes about 60 s per side on the CPU.
 
 ``--side torch --device cuda`` runs the port alone on a card (no JAX is
 imported then); there ``--plain-route`` sends the transport through
@@ -27,12 +34,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import importlib.util
 import json
 import sys
 import tempfile
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
 KEYS = ("train_loss", "val_loss", "rot_error", "trans_error")
 
@@ -54,10 +63,23 @@ def config(pkg_data, pkg_losses, pkg_train, log_dir, epochs, solver):
         phi_num_flow_layer=3)
 
 
+def row_config(args, log_dir, seed):
+    """The port's config of ``args.row`` from the row harness."""
+    spec = importlib.util.spec_from_file_location(
+        "registration_rows_torch", ROOT / "tools" / "registration_rows_torch.py")
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    return harness.row_config(args.row, seed, log_dir, args.epochs)
+
+
 def run_jax(log_dir, args, seed):
     from shwd_tpu import data, losses, train
-    cfg = config(data, losses, train, log_dir + "/jax", args.epochs, args.solver)
-    cfg = dataclasses.replace(cfg, seed=seed)
+    if args.row:
+        from shwd_tpu.train.config import config_from_dict
+        cfg = config_from_dict(json.loads(row_config(args, log_dir + "/jax", seed).to_json()))
+    else:
+        cfg = config(data, losses, train, log_dir + "/jax", args.epochs, args.solver)
+        cfg = dataclasses.replace(cfg, seed=seed)
     ds = data.RegistrationDataset(cfg.dataset, "train")
     return train.Trainer(cfg).fit(ds, verbose=False)["history"]
 
@@ -65,8 +87,11 @@ def run_jax(log_dir, args, seed):
 def run_torch(log_dir, args, seed):
     from shwd_torch import data, losses, train
     from shwd_torch.losses import transport
-    cfg = config(data, losses, train, log_dir + "/torch", args.epochs, args.solver)
-    cfg = dataclasses.replace(cfg, seed=seed)
+    if args.row:
+        cfg = row_config(args, log_dir + "/torch", seed)
+    else:
+        cfg = config(data, losses, train, log_dir + "/torch", args.epochs, args.solver)
+        cfg = dataclasses.replace(cfg, seed=seed)
     ds = data.RegistrationDataset(cfg.dataset, "train", device=args.device)
     if args.plain_route:
         transport.emd2_points = functools.partial(transport.emd2_points,
@@ -79,10 +104,16 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--solver", default="sinkhorn")
     ap.add_argument("--side", choices=("both", "jax", "torch"), default="both")
-    ap.add_argument("--seeds", type=int, nargs="+", default=[1234])
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="default: 1234, or the row's seed with --row")
+    ap.add_argument("--seed", type=int, default=None, help="one seed (adds to --seeds)")
+    ap.add_argument("--row", default=None,
+                    help="a row of tools/registration_rows_torch.py")
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--plain-route", action="store_true")
     args = ap.parse_args()
+    seeds = (args.seeds or []) + ([args.seed] if args.seed is not None else [])
+    args.seeds = seeds or [None if args.row else 1234]
     out = {}
     runs = [(side, run, seed)
             for side, run in (("jax", run_jax), ("torch", run_torch))
@@ -101,7 +132,8 @@ def main() -> int:
                 "train_loss_last_quarter": sum(r["train_loss"] for r in hist[-q:]) / q,
                 "rot_error_max": max(r["rot_error"] for r in hist),
                 "rot_error_min": min(r["rot_error"] for r in hist)}
-    print(json.dumps({"epochs": args.epochs, "solver": args.solver,
+    print(json.dumps({"epochs": args.epochs, "row": args.row,
+                      "solver": None if args.row else args.solver,
                       "device": args.device, "plain_route": args.plain_route,
                       **out}))
     return 0

@@ -1,6 +1,7 @@
-"""The port imports no JAX: every module of shwd_torch, its tools, the
-examples written for it, chip_smoke.py, and the helper that the parallel
-tests' spawned processes import."""
+"""The port imports no JAX: every module of shwd_torch, its tools (the
+registration-row harness among them), the examples written for it,
+chip_smoke.py, and the helper that the parallel tests' spawned processes
+import."""
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
 
@@ -48,6 +49,7 @@ def test_every_module_is_checked():
     assert {"runner.py", "hpo.py", "mesh.py", "sharded_ops.py", "dist_sort.py",
             "scaling.py", "flow_cube_torch.py", "train_registration_torch.py",
             "metric_sweep_torch.py", "torch_dist.py"} <= names
+    assert "registration_rows_torch.py" in names
     dirs = {p.parent.name for p in FILES}
     assert {"models", "data", "train", "ops", "losses", "utils", "flows",
             "parallel", "examples"} <= dirs

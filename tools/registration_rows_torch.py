@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""The registration accuracy rows of the JAX package, trained by the port.
+
+Each row is one ``TrainConfig`` of the JAX package's recorded accuracy
+rows (``benchmarks/registration_tpu.json``, held-out results in
+``benchmarks/eval_bench_*.json``), rebuilt here field by field with the
+values of the script that made it:
+
+  - ``w_cos``, ``sinkhorn``, ``w1_cos``, ``pseudo_w_cos``, ``cd``:
+    ``benchmarks/train_bench.py`` (2048 procedural ``composite`` shapes,
+    B=128, N=M=128, noise 0.02, 3 pose iterations, TrainConfig's SHWD);
+  - ``w_cos_128_hybrid``: the same with the ``hybrid`` solver, then
+    ``--resume 2500`` from its ``best_rot_error_snap``, as
+    ``benchmarks/resume_hybrid.py`` did;
+  - ``w_cos_meshbank_128``: ``benchmarks/meshbank_bench.py`` (the OFF
+    meshes of ``mesh_bank/`` through ``preprocess_modelnet``, seed 7, lr
+    1e-3, 6000 epochs);
+  - ``max_ssw``: variant P of ``benchmarks/final_max_ssw.py`` (mlp chart,
+    512 projections, p = 1) with ``checkpoint_combined_weight=100`` as
+    ``benchmarks/resume_max_ssw.py`` set it, 900 epochs in one run.
+
+A run is ``Trainer.fit`` (fused, on the card unless ``--device cpu``) and
+then ``evaluate`` on the test split at the row's snapshot
+(``best_rot_error_snap``; ``best_combined_snap`` for ``max_ssw``). The JAX
+rows ran with ``nan_guard=True`` (``hybrid`` without): here every row runs
+without it, on the fused path, and a non-finite epoch metric fails the run.
+One JSON row per (row, seed) is written into ``--out`` (replacing the
+earlier one), with the curves, the held-out errors, the bar the row is
+held to and the JAX row beside it. Checkpoints go under ``--log-dir``.
+
+    python3 tools/registration_rows_torch.py --rows w_cos --seeds 1234
+    python3 tools/registration_rows_torch.py --rows w_cos_128_hybrid --resume 2500
+
+``--epochs`` cuts a row's length for a short run. A snapshot takes ~50 MB
+and a run keeps 3-4: keep ``--log-dir`` out of any directory whose size is
+limited.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+# the HPO winner's knobs, as the JAX scripts spell them
+LAM = 1.3111961119405346e-05
+PHI_LR = 9.213233310357477e-05
+PHI_WD = 1.4096013153858628e-08
+
+# row -> (epochs, the JAX row's seed, its held-out file, best and held-out
+# rotation bars in deg: 1.5x the JAX row, None where only held-out is held)
+ROWS = {
+    "w_cos": (2000, 1234, "eval_bench_w_cos.json", 2.5, 2.6),
+    "w_cos_128_hybrid": (2000, 1234, "eval_bench_w_cos_128_hybrid.json", 2.25, 2.35),
+    "w_cos_meshbank_128": (6000, 7, None, None, 11.3),
+    "sinkhorn": (300, 1234, "eval_bench_sinkhorn.json", None, 1.5 * 2.480177879333496),
+    "w1_cos": (200, 1234, "eval_bench_w1_cos.json", None, 1.5 * 2.609142541885376),
+    "pseudo_w_cos": (150, 1234, "eval_bench_pseudo_w_cos.json", None,
+                     1.5 * 2.8614706993103027),
+    "cd": (300, 1234, "eval_bench_cd.json", None, 1.5 * 4.56306791305542),
+    "max_ssw": (900, 1234, "eval_bench_max_ssw.json", None, 1.5 * 3.096400499343872),
+}
+SUCCESS_DEG = 5.0
+METRICS = ("train_loss", "val_loss", "rot_error", "trans_error")
+
+
+def row_config(row: str, seed: int | None = None, log_dir: str = "log",
+               epochs: int | None = None):
+    """The port's ``TrainConfig`` of ``row``: the JAX script's values, but
+    ``nan_guard=False``; ``seed`` None is the JAX row's seed."""
+    from shwd_torch.data import DatasetConfig, TransformConfig
+    from shwd_torch.losses import MaxSSWConfig, SHWDConfig, TransportConfig
+    from shwd_torch.train import TrainConfig
+    length, jax_seed, *_ = ROWS[row]
+    seed = jax_seed if seed is None else seed
+    bank = DatasetConfig(
+        source_point_num=128, target_point_num=128, num_synthetic=2048,
+        synthetic_kinds=("composite",), cache_dir="modelnet_cache",
+        transform=TransformConfig(noise_sigma=0.02))
+    common = dict(log_dir=log_dir, num_epochs=epochs or length, seed=seed,
+                  batch_size=128, pcr_iteration_num=3, nan_guard=False)
+
+    def shwd(solver):
+        return SHWDConfig(transport=TransportConfig(cost="lp", p=2.0, solver=solver),
+                          max_iter=1, lam=LAM, phi_lr=PHI_LR, phi_weight_decay=PHI_WD)
+
+    if row == "w_cos_meshbank_128":
+        return TrainConfig(
+            experiment="meshbank_w_cos_128", criterion="w_cos", shwd=shwd("sinkhorn"),
+            dataset=DatasetConfig(source_point_num=128, target_point_num=128,
+                                  modelnet_root="mesh_bank", cache_dir="meshbank_cache",
+                                  transform=TransformConfig(noise_sigma=0.02)),
+            lr=1e-3, weight_decay=PHI_WD, **common)
+    if row == "max_ssw":
+        return TrainConfig(
+            experiment="bench_max_ssw", criterion="max_ssw", max_ssw_chart="mlp",
+            max_ssw=MaxSSWConfig(num_projections=512, max_iter=1, phi_lr=PHI_LR, p=1.0),
+            dataset=bank, checkpoint_combined_weight=100.0, **common)
+    criterion = "w_cos" if row == "w_cos_128_hybrid" else row
+    extra = {"shwd": shwd("hybrid")} if row == "w_cos_128_hybrid" else {}
+    return TrainConfig(
+        experiment=f"bench_{row}", criterion=criterion, dataset=bank,
+        max_ssw=MaxSSWConfig(num_projections=100, max_iter=1, phi_lr=9.2e-5),
+        **extra, **common)
+
+
+def resume_config(cfg, total: int):
+    """``cfg`` continued from its ``best_rot_error_snap`` to ``total``
+    epochs, as ``benchmarks/resume_hybrid.py`` continues its row."""
+    snap = Path(cfg.log_dir) / cfg.experiment / "models" / "best_rot_error_snap"
+    return dataclasses.replace(cfg, num_epochs=total, load_model=str(snap))
+
+
+def snapshot_name(row: str) -> str:
+    return "best_combined_snap" if row == "max_ssw" else "best_rot_error_snap"
+
+
+def card_line() -> str | None:
+    """``name, power.limit`` of the card as nvidia-smi prints them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
+
+
+def source_digest() -> str:
+    """sha256 (16 hex) of the port's sources and this script: which code
+    made a row, where no git history is at hand."""
+    h = hashlib.sha256()
+    files = sorted((ROOT / "shwd_torch").rglob("*.py")) + sorted(
+        (ROOT / "shwd_torch" / "csrc").glob("*.cu")) + [Path(__file__).resolve()]
+    for f in files:
+        h.update(str(f.relative_to(ROOT)).encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def jax_row(row: str) -> dict:
+    """The JAX row's recorded numbers (TPU times left out)."""
+    _, _, eval_file, _, _ = ROWS[row]
+    rows = json.loads((ROOT / "benchmarks" / "registration_tpu.json").read_text())
+    rec = next(r for r in rows if r["criterion"] == row)
+    out = {k: rec[k] for k in ("epochs", "best_rot_error", "best_trans_error",
+                               "final_rot_error", "test_mean_rot_error",
+                               "test_mean_trans_error", "resumed_to_epoch",
+                               "held_out_after_resume_rot") if k in rec}
+    if eval_file:
+        ev = json.loads((ROOT / "benchmarks" / eval_file).read_text())
+        out["test_mean_rot_error"] = ev["mean_rot_error_deg"]
+        out["test_mean_trans_error"] = ev["mean_trans_error"]
+        i = ev["rot_thresholds_deg"].index(SUCCESS_DEG)
+        out["rot_success_ratio_5deg"] = ev["rot_success_ratio"][i]
+    return out
+
+
+def fit_and_evaluate(cfg, row: str, device) -> dict:
+    """``Trainer.fit`` then ``evaluate`` on the test split at the row's
+    snapshot: the JAX rows' keys, times, peak memory and the final lam."""
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.train import Trainer
+    from shwd_torch.train.evaluate import evaluate
+    trainer = Trainer(cfg, device=device)
+    dev = trainer.device
+    ds = RegistrationDataset(cfg.dataset, "train", device=dev)
+    init_ev = None
+    if not cfg.load_model:
+        # where the fit starts: its initial state (the first draws of the
+        # generator fit seeds with cfg.seed) on the test split
+        init = trainer.init_state(torch.Generator(device=dev).manual_seed(cfg.seed))
+        init_ev = evaluate(cfg, state=init, split="test", device=dev)
+        del init
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = trainer.fit(ds, verbose=False)
+    total = time.perf_counter() - t0
+    h = res["history"]
+    bad = [r["epoch"] for r in h if not all(math.isfinite(r[k]) for k in METRICS)]
+    snap = Path(cfg.log_dir) / cfg.experiment / "models" / snapshot_name(row)
+    ev = evaluate(cfg, checkpoint=str(snap), split="test", device=dev)
+    i = int(np.searchsorted(ev.rot_thresholds, SUCCESS_DEG))
+    steps = [r["train_seconds"] / r["train_steps"] * 1e3 for r in h[1:]] or [
+        h[0]["train_seconds"] / h[0]["train_steps"] * 1e3]
+    crit = res["state"].crit_state
+    out = {
+        "epochs_run": len(h), "first_epoch": h[0]["epoch"],
+        "train_shapes": len(ds), "train_steps_per_epoch": h[0]["train_steps"],
+        "init_test_rot_error": init_ev and init_ev.mean_rot_error,
+        "first_rot_error": h[0]["rot_error"],
+        "best_rot_error": float(res["best"]["rot"]),
+        "best_rot_epoch": h[int(np.argmin([r["rot_error"] for r in h]))]["epoch"],
+        "best_combined_epoch": h[int(np.argmin(
+            [r["rot_error"] + 100.0 * r["trans_error"] for r in h]))]["epoch"],
+        "best_trans_error": float(res["best"]["trans"]),
+        "final_rot_error": h[-1]["rot_error"], "final_trans_error": h[-1]["trans_error"],
+        "rot_curve_every10": [r["rot_error"] for r in h[::10]],
+        "trans_curve_every10": [r["trans_error"] for r in h[::10]],
+        "evaluated_snapshot": snap.name,
+        "evaluated_snapshot_epoch": int(torch.load(str(snap) + ".pt", map_location="cpu",
+                                                   weights_only=True)["epoch"]),
+        "test_mean_rot_error": ev.mean_rot_error,
+        "test_mean_trans_error": ev.mean_trans_error,
+        "test_samples": int(ev.per_sample_rot.shape[0]),
+        "rot_success_ratio_5deg": float(ev.rot_success_ratio[i]),
+        "total_s": total, "s_per_epoch": total / len(h),
+        # the epochs after the first, which captures the step graphs
+        "s_per_epoch_median": float(np.median([r["seconds"] for r in h[1:]] or
+                                              [h[0]["seconds"]])),
+        "first_epoch_s": h[0]["seconds"],
+        "ms_per_train_step": float(np.mean(steps)),
+        "ms_per_train_step_median": float(np.median(steps)),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+        "path": res["path"], "nonfinite_epochs": bad,
+    }
+    if cfg.criterion in ("w_cos", "w1_cos"):
+        calls = sum(r["train_steps"] for r in h)
+        out["lam_final"] = float(crit.lam)
+        # the JAX rule: lam <- lam * lam_decay after every train call, in f32
+        out["lam_expected"] = float(np.float32(cfg.shwd.lam)
+                                    * np.float32(cfg.shwd.lam_decay) ** calls)
+    opt = res["state"].opt
+    out["adam_step"] = int(opt.state[next(iter(res["state"].model.parameters()))]["step"])
+    return out
+
+
+def run(row: str, seed: int, args) -> dict:
+    """One (row, seed): a fit from scratch, or with ``--resume`` a fit
+    from the row's ``best_rot_error_snap`` to that many epochs, merged into
+    the row already in ``--out``."""
+    cfg = row_config(row, seed, str(Path(args.log_dir) / f"{row}_s{seed}"), args.epochs)
+    head = {"row": row, "criterion": row, "seed": cfg.seed,
+            "card": card_line(), "commit": args.commit,
+            "source_sha256_16": source_digest(), "torch": torch.__version__}
+    if args.resume is None:
+        out = {**head, "epochs": cfg.num_epochs, "nan_guard": cfg.nan_guard,
+               "bar": {"best_rot_error": ROWS[row][3], "test_mean_rot_error": ROWS[row][4]},
+               **fit_and_evaluate(cfg, row, args.device), "jax_row": jax_row(row)}
+        out["meets_bar"] = ((out["bar"]["best_rot_error"] is None
+                             or out["best_rot_error"] <= out["bar"]["best_rot_error"])
+                            and out["test_mean_rot_error"] <= out["bar"]["test_mean_rot_error"])
+        return out
+    cfg = resume_config(cfg, args.resume)
+    part = fit_and_evaluate(cfg, row, args.device)
+    part.update(card=head["card"], source_sha256_16=head["source_sha256_16"],
+                resumed_from_epoch=part["first_epoch"] - 1, resumed_to_epoch=args.resume)
+    out = next((r for r in load_rows(args.out)
+                if r["row"] == row and r["seed"] == cfg.seed), dict(head))
+    out["resume"] = part
+    return out
+
+
+def load_rows(path) -> list:
+    p = Path(path)
+    return json.loads(p.read_text()) if p.exists() else []
+
+
+def store(path, row: dict) -> None:
+    rows = [r for r in load_rows(path)
+            if (r["row"], r["seed"]) != (row["row"], row["seed"])]
+    rows.append(row)
+    rows.sort(key=lambda r: (list(ROWS).index(r["row"]), r["seed"]))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(rows, indent=1) + "\n")
+
+
+def summary(row: dict) -> dict:
+    keys = ("row", "seed", "best_rot_error", "test_mean_rot_error",
+            "test_mean_trans_error", "rot_success_ratio_5deg", "s_per_epoch",
+            "s_per_epoch_median", "ms_per_train_step", "meets_bar", "nonfinite_epochs")
+    out = {k: row[k] for k in keys if k in row}
+    if "resume" in row:
+        out["resume"] = {k: row["resume"][k] for k in keys if k in row["resume"]}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", nargs="+", choices=list(ROWS), default=["w_cos"])
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="default: each row's JAX seed")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="cut each row to this many epochs")
+    ap.add_argument("--resume", type=int, default=None, metavar="TOTAL",
+                    help="continue from best_rot_error_snap to TOTAL epochs")
+    ap.add_argument("--device", choices=("cpu",), default=None,
+                    help="the card unless cpu (for tests)")
+    ap.add_argument("--log-dir", default="log/registration_rows")
+    ap.add_argument("--out", default=str(ROOT / "tools" / "registration_rows_h100.json"))
+    ap.add_argument("--commit", default=None,
+                    help="the commit the tree was taken from, recorded as given")
+    args = ap.parse_args(argv)
+    failed = False
+    for row in args.rows:
+        for seed in args.seeds or [ROWS[row][1]]:
+            out = run(row, seed, args)
+            store(args.out, out)
+            print(json.dumps(summary(out)), flush=True)
+            part = out.get("resume", out) if args.resume else out
+            failed |= bool(part["nonfinite_epochs"])
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
