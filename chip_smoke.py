@@ -47,7 +47,14 @@ Phases, each printing one JSON line:
      the row ends below it), every method fused, its points at iteration
      50 equal to 50 per-step iterations' (bit for bit for the six methods
      with an inner Adam ascent), and the Chamfer-metric twins of
-     SWD, ASWD, SSWD and CD, 100 iterations each on K4;
+     SWD, ASWD, SSWD and CD, 100 iterations each on K4; then
+     flow_ellipsoid: the ellipsoid_2 row of tools/flow_rows_torch.py (SHWD
+     on hybrid from the JAX row's clouds, tools/flow_clouds_jax.npz, N =
+     1000, 1000 iterations, the point lr cosine-decayed to 0.1x: a device
+     tensor filled between replays), fused: final W2 <= 1e-3, 50 per-step
+     iterations under the same schedule giving the fused run's points at
+     iteration 50, K1/K2 as graph nodes x (replays + warm-up); and the
+     SWD twin with the Chamfer metric, 100 iterations on K4;
   5. slice 2: the W_COS registration trainer, shwd_torch.train.Trainer.fit
      at B=128, N=M=128, full-width PCRNet, 3 Residual layers, on the
      procedural shape bank, fused (fused_epoch, the default: the train
@@ -70,6 +77,9 @@ Phases, each printing one JSON line:
      the test split at best_rot_error_snap be finite and below epoch 1's
      error; K3 counted as graph nodes x replays plus the warm-ups; the
      curve every 10 epochs, ms per train step, s per epoch, peak memory;
+  5b. registration_outliers: the robust_outliers_10 row (10 points of
+     every source replaced by N(0, 1) draws), seed 0, 20 epochs, fused:
+     finite, the validation rotation error below epoch 1's, K3 counted;
   6. evaluate: shwd_torch.train.evaluate.evaluate on the sinkhorn run's
      best-rotation checkpoint, the test split, on the card by default;
      both success curves non-decreasing to 1.0, five thresholds recounted
@@ -108,7 +118,13 @@ Phases, each printing one JSON line:
      validation rotation error must end below epoch 1's; and w_cos on the
      ssw solver (geodesic, p = 2, 100 projections) at N=M=1024, 3 epochs;
      each with its ms per step, device launches and busy ms of one
-     profiled step, and peak memory;
+     profiled step, and peak memory; then sinkhorn_div_1024: 2 epochs of
+     the w_cos_1024_sinkhorn_div row's config (B=128, N=M=1024, the plain
+     Sinkhorn divergence) on a 256-shape bank, whose peak memory must be
+     under a tenth of what its dual iterations would hold if autograd
+     recorded them; and fit_memory: two short w_cos fits in one process,
+     whose allocated bytes (held and after del) and peaks must agree
+     within 2 MiB;
   7a. fused against per-step (fused_vs_per_step): for w_cos/sinkhorn,
      w_cos/hybrid, cd and pseudo_w_cos, 5-epoch fits with fused_epoch
      False and True in turns, each held to the fused run's first 4 epochs
@@ -127,7 +143,10 @@ the pseudo_w_cos run and the sinkhorn refinement, "launches_learns" K3's
 in phase registration_learns, "launches_data_parallel"
 K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 "launches_cd_twins" K4's
-on the twins, "launches_per_call" is phase 8's count), the
+on the twins, "launches_ellipsoid" K1's and K2's and "launches_ellipsoid_cd"
+K4's in phase flow_ellipsoid, "launches_outliers" K3's in phase
+registration_outliers, "launches_per_call" is phase 8's count), a
+"phase_seconds" line after each phase added in slice 11, the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. Without CUDA, or without the
 shwd_torch package beside it, it exits non-zero before printing anything.
@@ -135,6 +154,7 @@ shwd_torch package beside it, it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -159,7 +179,7 @@ REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
 REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
               "ssw_1024": 3, "data_parallel": 4, "data_parallel_ab": 9, "sweep": 2,
-              "hpo": 2, "turns": 5}
+              "hpo": 2, "turns": 5, "outliers": 20, "sinkhorn_div": 2, "fit_memory": 2}
 HELD_EPOCHS = 4                   # the per-step fits are held to the fused runs' first 4
 SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # Of the seeds 0, 1, 2 and 1234 on an H100, the first three bring the model
@@ -279,6 +299,15 @@ def bound_ms(bytes_moved: float, ops: float, transcendentals: float = 0.0):
     t_ops = max(terms["f32_ops_ms"], terms["transcendentals_ms"])
     by = "bytes" if terms["bytes_ms"] >= t_ops else "operations"
     return max(terms["bytes_ms"], t_ops), by, terms
+
+
+def timed(phase, *args):
+    """``phase(*args)``, then a line with the seconds it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase_seconds": phase.__name__[len("phase_"):],
+          "seconds": time.perf_counter() - t0})
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -715,8 +744,6 @@ def phase_flow(dev):
     captured as a CUDA graph, replayed 400 times); then 50 iterations of
     the per-step loop from the same start, whose points must equal the
     fused run's at iteration 50; the idle share of one replayed step."""
-    import dataclasses
-
     from shwd_torch.ops import auction as au
     from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops.emd_exact import w2_exact
@@ -896,8 +923,6 @@ def phase_flow_cd(dev):
     """The same flow config for 20 iterations with eval_metric="cd": run_flow
     records the tiled Chamfer (K4) at iteration 0 and after every
     interval."""
-    import dataclasses
-
     from shwd_torch.ops.chamfer import chamfer, chamfer_tiled
     from shwd_torch.train.flow_driver import run_flow
     src, tgt = flow_clouds(dev)
@@ -1102,11 +1127,11 @@ def phase_registration(dev, log_dir):
              "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run, runs)
 
 
-def row_harness():
-    """tools/registration_rows_torch.py, the rows' configs."""
+def tool(name):
+    """The module tools/<name>.py (the row harnesses: their configs)."""
     import importlib.util
-    path = Path(__file__).resolve().parent / "tools" / "registration_rows_torch.py"
-    spec = importlib.util.spec_from_file_location("registration_rows_torch", path)
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1121,9 +1146,9 @@ def phase_registration_learns(dev, log_dir):
     best_rot_error_snap be finite and below the first epoch's error. K3
     twice per train step and once per eval batch, as graph nodes x replays
     plus each graph's warm-up. Returns K3's launches."""
-    import dataclasses
     from shwd_torch.train.evaluate import evaluate
-    cfg = row_harness().row_config("w_cos", REG_SEED, str(log_dir), LEARN_EPOCHS)
+    rows = tool("registration_rows_torch")
+    cfg = rows.row_config("w_cos", REG_SEED, str(log_dir), LEARN_EPOCHS)
     cfg = dataclasses.replace(cfg, experiment="registration_learns")
     n_val = int(cfg.dataset.num_synthetic * cfg.dataset.val_split)
     run, _, res, _ = run_registration(dev, cfg, n_val_expected=n_val)
@@ -1245,7 +1270,6 @@ def phase_data_parallel(dev, log_dir, sink_cfg, sink_res):
     against their unsharded port functions on the registration batch;
     sharded refinement (sinkhorn, K3, its own captured graphs) against
     refine_poses; the scaling harness at D = 1."""
-    import dataclasses
     import torch.distributed as dist
     from shwd_torch.data import RegistrationDataset
     from shwd_torch.ops import sinkhorn_fused as sp
@@ -1532,6 +1556,162 @@ def phase_registration_ssw_1024(dev, log_dir):
     check(run["path"] == "fused", f"registration_ssw_1024: path {run['path']}")
 
 
+def phase_flow_ellipsoid(dev):
+    """The ellipsoid_2 row of tools/flow_rows_torch.py: SHWD on the hybrid
+    solver from the JAX row's own clouds (tools/flow_clouds_jax.npz, N =
+    1000), the point lr cosine-decayed to 0.1x over 1000 iterations (a
+    device tensor the scheduler fills between replays), W2 every 25,
+    fused: final W2 <= 1e-3 (flow_parity.py's bar); 50 iterations of the
+    per-step loop under the same schedule must give the fused run's points
+    at iteration 50; K1 once and K2 twice a step, counted as graph nodes x
+    (replays + the warm-up). Then the Chamfer-metric twin of SWD on the
+    same clouds, 100 iterations, K4 every 25. Returns the launches."""
+    from shwd_torch.ops.chamfer import chamfer_tiled
+    from shwd_torch.ops.emd_exact import w2_exact
+    from shwd_torch.train.flow_driver import run_flow
+    flows = tool("flow_rows_torch")
+    cfg = flows.flow_config("ellipsoid_2", "SHWD")
+    src, tgt = flows.clouds("ellipsoid_2")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    seen = []
+
+    def eval_w2(p, t):
+        if len(seen) < 3:
+            seen.append(p.copy())
+        return w2_exact(p, t)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_flow(src, tgt, cfg, eval_fn=eval_w2, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: wrappers[k].launches for k in ("emd2_warmup", "auction_assignment")}
+    at_50 = seen[2]
+    tgt_dev = torch.as_tensor(tgt, device=dev)
+    _, per_step = flow_per_step(dev, cfg, torch.as_tensor(src, device=dev), tgt_dev,
+                                2 * cfg.eval_interval, True, 0)
+    diff_50 = float(np.abs(per_step.cpu().numpy() - at_50).max())
+    final = float(res.eval_values[-1])
+    jax = flows.jax_row("ellipsoid_2", "SHWD", "w2")
+    twin_cfg = dataclasses.replace(flows.flow_config("ellipsoid_2", "SWD", "cd"),
+                                   num_iterations=100)
+    chamfer_tiled.launches = 0
+    twin = run_flow(src, tgt, twin_cfg, device=dev)
+    k4 = chamfer_tiled.launches
+    twin_jax = flows.jax_row("ellipsoid_2", "SWD", "cd")["final_cd"]
+    emit({"phase": "flow_ellipsoid", "experiment": "ellipsoid_2", "points": len(src),
+          "iterations": cfg.num_iterations, "lr_decay_alpha": cfg.lr_decay_alpha,
+          "ms_per_iter": float(np.mean(res.interval_seconds)) / cfg.eval_interval * 1e3,
+          "final_w2": final, "best_w2": float(np.min(res.eval_values)),
+          "w2_curve": res.eval_values.tolist(), "jax_final_w2": jax["final_w2"],
+          "points_at_50_max_abs_diff_vs_per_step": diff_50, "graph": res.graph,
+          "launches": launches, "wall_seconds": wall,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+          "cd_twin": {"method": "SWD", "iterations": twin_cfg.num_iterations,
+                      "cd_curve": twin.eval_values.tolist(), "launches": k4,
+                      "jax_final_cd_at_1000": twin_jax}})
+    check(res.path == "fused" and res.graph["captured"], f"flow_ellipsoid: path {res.path}")
+    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2},
+          f"flow_ellipsoid: graph kernel nodes {res.graph['nodes_by_kernel']}")
+    check(bool(np.isfinite(res.eval_values).all()) and np.isfinite(res.clouds).all(),
+          "flow_ellipsoid: non-finite W2 or clouds")
+    check(final <= 1e-3, f"flow_ellipsoid: final W2 {final} > 1e-3")
+    check(diff_50 <= 1e-5, f"flow_ellipsoid: the per-step loop's points at iteration 50 "
+          f"are {diff_50} off the fused run's")
+    for k, v in launches.items():
+        want = graph_launches([res.graph], k)
+        check(v == want and v > 0, f"flow_ellipsoid: {k} launched {v} times, the graph "
+              f"accounts for {want}")
+    want = twin_cfg.num_iterations // twin_cfg.eval_interval + 1
+    check(k4 == want, f"flow_ellipsoid: K4 launched {k4} times on the twin, expected {want}")
+    check(bool(np.isfinite(twin.eval_values).all())
+          and twin.eval_values[-1] < twin.eval_values[0],
+          f"flow_ellipsoid: the twin's Chamfer metric did not fall {twin.eval_values}")
+    return launches, k4
+
+
+def phase_registration_outliers(dev, log_dir):
+    """The robust_outliers_10 row of tools/registration_rows_torch.py (10
+    source points of every cloud replaced by N(0, 1) draws, noise 0.02,
+    w_cos on K3, the 2048-shape bank), seed REG_SEED, 20 epochs, fused:
+    losses and errors finite, the validation rotation error below epoch
+    1's, K3 twice per train step and once per eval batch as graph nodes x
+    replays plus the warm-ups. Returns K3's launches."""
+    rows = tool("registration_rows_torch")
+    cfg = rows.row_config("robust_outliers_10", REG_SEED, str(log_dir), REG_EPOCHS["outliers"])
+    check(cfg.dataset.transform.outlier_num == 10, "registration_outliers: no outliers")
+    n_val = int(cfg.dataset.num_synthetic * cfg.dataset.val_split)
+    run, _, _, _ = run_registration(dev, cfg, n_val_expected=n_val)
+    check_fused_launches("outliers", run, "sinkhorn_points", 2, 1)
+    want = 2 * run["train_steps"] + run["eval_batches"] + 2 + (len(run["graphs"]) - 1)
+    emit({"phase": "registration_outliers", "row": "robust_outliers_10", "seed": cfg.seed,
+          "epochs": run["epochs"], "val_rot_error_curve": run["val_rot_error_curve"],
+          "best": run["best"], "ms_per_train_step": run["ms_per_train_step"],
+          "peak_mem_bytes": run["peak_mem_bytes"],
+          "k3_launches": run["launches"]["sinkhorn_points"], "k3_launches_expected": want})
+    check(run["launches"]["sinkhorn_points"] == want,
+          f"registration_outliers: K3 launched {run['launches']['sinkhorn_points']} "
+          f"times, expected {want}")
+    check(min(run["val_rot_error_curve"][1:]) < run["val_rot_error_first"],
+          "registration_outliers: the validation rotation error never fell below epoch 1's")
+    return run["launches"]["sinkhorn_points"]
+
+
+def phase_sinkhorn_div_1024(dev, log_dir):
+    """The w_cos_1024_sinkhorn_div row's config (the debiased Sinkhorn
+    divergence, plain PyTorch in both packages: three (128, 1024, 1024)
+    costs, 4 x 50 dual iterations each, two solves a train step) for
+    REG_EPOCHS["sinkhorn_div"] epochs, fused, on a 256-shape bank (one
+    train step and one 51-shape eval batch an epoch; the batch and the
+    clouds are the row's). Losses finite; the peak device memory must be
+    under a tenth of what the final solve's dual iterations would hold if
+    autograd recorded them (~4 (B, N, M) tensors an iteration)."""
+    rows = tool("registration_rows_torch")
+    cfg = rows.row_config("w_cos_1024_sinkhorn_div", REG_SEED, str(log_dir),
+                          REG_EPOCHS["sinkhorn_div"])
+    cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(cfg.dataset,
+                                                               num_synthetic=REG_SHAPES))
+    tp = cfg.shwd.transport
+    b, n = cfg.batch_size, cfg.dataset.source_point_num
+    recorded = 3 * (4 * tp.num_iters * tp.num_scales) * b * n * n * 4
+    run, _, _, _ = run_registration(dev, cfg)
+    emit({"phase": "sinkhorn_div_1024", "batch": b, "points": n, "epochs": run["epochs"],
+          "ms_per_train_step": run["ms_per_train_step"],
+          "ms_per_epoch": run["ms_per_epoch"], "wall_seconds": run["wall_seconds"],
+          "peak_mem_bytes": run["peak_mem_bytes"],
+          "recorded_duals_bytes": recorded, "history": run["history"],
+          "launches": run["launches"], "path": run["path"]})
+    check(run["path"] == "fused", f"sinkhorn_div_1024: path {run['path']}")
+    check(run["peak_mem_bytes"] < recorded / 10,
+          f"sinkhorn_div_1024: peak {run['peak_mem_bytes']} bytes, not under a tenth of "
+          f"the recorded duals' {recorded}")
+
+
+def phase_fit_memory(dev, log_dir):
+    """Two short w_cos fits (K3) in one process: after the second, with its
+    result held and after ``del``, torch.cuda.memory_allocated() is what
+    it was after the first, and the second fit peaks at the first's, each
+    within one allocator block (2 MiB)."""
+    import gc
+    block = 2 << 20
+    cfg = registration_config(log_dir, "sinkhorn", num_epochs=REG_EPOCHS["fit_memory"],
+                              experiment="fit_memory")
+    marks = {"before": torch.cuda.memory_allocated(dev)}
+    for i in (1, 2):
+        run, trainer, res, ds = run_registration(dev, cfg)
+        marks[f"fit{i}_held"] = torch.cuda.memory_allocated(dev)
+        marks[f"fit{i}_peak"] = run["peak_mem_bytes"]
+        del run, trainer, res, ds
+        gc.collect()
+        marks[f"fit{i}_after_del"] = torch.cuda.memory_allocated(dev)
+    emit({"phase": "fit_memory", "epochs": cfg.num_epochs, "bytes": marks})
+    for what in ("held", "peak", "after_del"):
+        a, b = marks[f"fit1_{what}"], marks[f"fit2_{what}"]
+        check(abs(b - a) <= block, f"fit_memory: {what} {b} bytes after the second fit, "
+              f"{a} after the first")
+
+
 def phase_fused_vs_per_step(dev, refs):
     """For w_cos/sinkhorn, w_cos/hybrid, cd and pseudo_w_cos: fits of 5
     epochs with fused_epoch False and True in turns (per-step, fused,
@@ -1540,8 +1720,6 @@ def phase_fused_vs_per_step(dev, refs):
     reported); ms per train step of each path over the turns' epochs after
     the first, with quartiles; the graph's kernel nodes per step and the
     idle share of one replayed train step on a fresh state."""
-    import dataclasses
-
     from shwd_torch.data.transforms import RegistrationBatch
     out = {}
     for label, (cfg_ref, run_ref) in refs.items():
@@ -1636,8 +1814,6 @@ def phase_flow_methods(dev):
     functional Adam) and must give, at iteration 50, the points of 50
     iterations of the per-step loop from the same start: within 1e-5, and
     bit for bit for the six inner-ascent methods."""
-    import dataclasses
-
     from shwd_torch.ops.emd_exact import w2_exact
     from shwd_torch.train.flow_driver import run_flow
     src, tgt = flow_clouds(dev)
@@ -1706,7 +1882,6 @@ def phase_flow_cd_twins(dev):
     metric at iteration 0 and every 25; it must be finite, and fall where
     the JAX row ends below this run's start (SSWD, blind to the radius,
     ends above it in the JAX rows too)."""
-    import dataclasses
     from pathlib import Path
 
     from shwd_torch.ops.chamfer import chamfer_tiled
@@ -1940,11 +2115,15 @@ def main() -> int:
     k4["launches"] = phase_flow_cd(dev)
     phase_flow_methods(dev)
     k4["launches_cd_twins"] = phase_flow_cd_twins(dev)
+    ellipsoid, k4["launches_ellipsoid_cd"] = timed(phase_flow_ellipsoid, dev)
+    k1["launches_ellipsoid"] = ellipsoid["emd2_warmup"]
+    k2["launches_ellipsoid"] = ellipsoid["auction_assignment"]
     with tempfile.TemporaryDirectory() as log_dir:
         reg_launches, (sink_cfg, sink_res), reg_runs = phase_registration(dev, log_dir)
         k2["launches_registration"] = reg_launches["auction_assignment"]
         k3["launches"] = reg_launches["sinkhorn_points"]
         k3["launches_learns"] = phase_registration_learns(dev, log_dir)
+        k3["launches_outliers"] = timed(phase_registration_outliers, dev, log_dir)
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
         k3["launches_data_parallel"] = phase_data_parallel(dev, log_dir, sink_cfg, sink_res)
         del sink_res
@@ -1956,6 +2135,8 @@ def main() -> int:
         k3["launches_pseudo"], pseudo_run = phase_registration_pseudo(dev, log_dir)
         phase_registration_max_ssw(dev, log_dir)
         phase_registration_ssw_1024(dev, log_dir)
+        timed(phase_sinkhorn_div_1024, dev, log_dir)
+        timed(phase_fit_memory, dev, log_dir)
         refs = {label: (registration_config(log_dir, label, criterion, solver),
                         reg_runs[label])
                 for label, criterion, solver in (("sinkhorn", "w_cos", "sinkhorn"),

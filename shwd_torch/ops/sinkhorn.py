@@ -5,6 +5,13 @@ Counterpart of ``shwd_tpu/ops/sinkhorn.py``: ``sinkhorn_log``,
 ``sinkhorn_loss``. Gradients treat the transport plan as
 constant (envelope theorem): the plan is detached, which matches the
 exact-EMD gradient. Fixed iteration counts; the loops are Python loops.
+
+The dual iterations run without autograd, on the detached cost: the
+gradient never flows through the duals (the plan is detached), so
+recording them would only keep every iteration's (..., N, M) temporaries
+alive until the backward pass (about 800 of them for one ``emd2_approx``
+at the default 4 x 50 iterations). Only ``_plan_cost`` sees the live
+cost: values and gradients are those of the recorded loop, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,20 +47,25 @@ def sinkhorn_log(cost: torch.Tensor, eps: float = 0.01, num_iters: int = 100,
     (transport_cost, f, g): <P, C> with P the entropic plan, and the duals.
     """
     a, b, log_a, log_b = _uniform_logs(cost, a, b)
-    f = torch.zeros_like(a) if f0 is None else f0
-    g = torch.zeros_like(b) if g0 is None else g0
-    for _ in range(num_iters):
-        # f_i = -eps * LSE_j [ (g_j - C_ij)/eps + log b_j ]
-        f = -eps * _logsumexp((g[..., None, :] - cost) / eps + log_b[..., None, :], -1)
-        g = -eps * _logsumexp((f[..., :, None] - cost) / eps + log_a[..., :, None], -2)
+    with torch.no_grad():
+        c = cost.detach()
+        f = torch.zeros_like(a) if f0 is None else f0.detach()
+        g = torch.zeros_like(b) if g0 is None else g0.detach()
+        for _ in range(num_iters):
+            # f_i = -eps * LSE_j [ (g_j - C_ij)/eps + log b_j ]
+            f = -eps * _logsumexp((g[..., None, :] - c) / eps + log_b[..., None, :], -1)
+            g = -eps * _logsumexp((f[..., :, None] - c) / eps + log_a[..., :, None], -2)
     return _plan_cost(cost, f, g, log_a, log_b, eps), f, g
 
 
 def _plan_cost(cost, f, g, log_a, log_b, eps):
-    """<P, C> with log P = (f + g - C)/eps + log a + log b, P detached."""
-    log_p = ((f[..., :, None] + g[..., None, :] - cost) / eps
-             + log_a[..., :, None] + log_b[..., None, :])
-    p = torch.exp(log_p).detach()
+    """<P, C> with log P = (f + g - C)/eps + log a + log b, P detached
+    (made without autograd: the product with the live cost is all the
+    backward pass needs)."""
+    with torch.no_grad():
+        log_p = ((f[..., :, None] + g[..., None, :] - cost.detach()) / eps
+                 + log_a[..., :, None] + log_b[..., None, :])
+        p = torch.exp(log_p)
     return torch.sum(p * cost, dim=(-2, -1))
 
 
@@ -71,19 +83,21 @@ def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
     """
     a, b, log_a, log_b = _uniform_logs(cost, a, b)
     # under a data-parallel fit, the max over every rank's block of the batch
-    eps0 = torch.clamp_min(group_max(torch.amax(torch.abs(cost))), 1e-30).detach()
+    eps0 = torch.clamp_min(group_max(torch.amax(torch.abs(cost.detach()))), 1e-30)
     ratios = torch.linspace(0.0, 1.0, num_scales, dtype=cost.dtype,
                             device=cost.device)
     # log(eps) as a Python number: a device tensor made from it would be a
     # synchronising host-to-device copy
     eps_sched = torch.exp(torch.log(eps0) * (1 - ratios) + math.log(eps) * ratios)
-    f = torch.zeros_like(a)
-    g = torch.zeros_like(b)
-    for s in range(num_scales):
-        e = eps_sched[s]
-        for _ in range(num_iters):
-            f = -e * _logsumexp((g[..., None, :] - cost) / e + log_b[..., None, :], -1)
-            g = -e * _logsumexp((f[..., :, None] - cost) / e + log_a[..., :, None], -2)
+    with torch.no_grad():
+        c = cost.detach()
+        f = torch.zeros_like(a)
+        g = torch.zeros_like(b)
+        for s in range(num_scales):
+            e = eps_sched[s]
+            for _ in range(num_iters):
+                f = -e * _logsumexp((g[..., None, :] - c) / e + log_b[..., None, :], -1)
+                g = -e * _logsumexp((f[..., :, None] - c) / e + log_a[..., :, None], -2)
     val = _plan_cost(cost, f, g, log_a, log_b, eps)
     if return_potentials:
         return val, f, g

@@ -9,7 +9,8 @@ one replay per step. ``StepGraph`` holds:
   copies its arguments into them);
 - a warm-up on a side stream before the capture (libraries load, lazy
   state is made; the caller's warm-up leaves the state as it found it, see
-  ``preserved``);
+  ``preserved``); every graph of a device uses the same side stream
+  (``capture_stream``);
 - the capture, on that stream, with the step's ``torch.Generator``s
   registered so that every replay draws what the eager step would;
 - ``replay()`` per call, adding each kernel wrapper's nodes to its launch
@@ -36,6 +37,21 @@ from torch import nn
 from ..parallel import mesh as pmesh
 
 _KERNEL_NODE = 0          # CUgraphNodeType: CU_GRAPH_NODE_TYPE_KERNEL
+# one side stream per device for every warm-up and capture: cuBLAS gets a
+# workspace (32 MiB, twice with cuBLASLt's) for each stream it runs on, and
+# PyTorch keeps it for the life of the process, so a new stream per
+# capture left ~100 MiB allocated behind every fit
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every ``StepGraph`` on ``device`` warms up and
+    captures on."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
 
 
 def kernel_wrappers() -> dict:
@@ -168,7 +184,7 @@ class StepGraph:
             return
         t0 = time.perf_counter()
         dev = self.device
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         if self.warmup is not None:
             with torch.cuda.stream(stream):

@@ -1049,3 +1049,113 @@ def test_capturable_adam_step_against_the_eager_one(cuda):
     print("capturable vs host-side Adam after 3 steps: largest difference in ulps "
           "of the parameter, in ulps of the update's scale, relative to the "
           "largest update:", worst)
+
+
+def _row_harness(name):
+    import importlib.util
+    path = Path(__file__).resolve().parent.parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_later_fits_leave_device_memory_where_it_started(cuda, tmp_path):
+    """A fused w_cos fit (K3) leaves nothing allocated behind once its
+    result and trainer are gone: after a first fit (which makes the
+    process's cuBLAS workspaces, one per stream, kept for the process's
+    life) two more fits each return memory_allocated() to the same bytes
+    and peak at the same bytes, within one 2 MiB allocator block. Every
+    graph captures on one side stream (utils/graphs.py::capture_stream):
+    with a new stream per capture each fit left ~100 MiB of workspaces."""
+    import gc
+
+    from shwd_torch.data import DatasetConfig, RegistrationDataset, TransformConfig
+    from shwd_torch.train import TrainConfig, Trainer
+    cfg = TrainConfig(
+        experiment="fit_memory", log_dir=str(tmp_path), criterion="w_cos", batch_size=128,
+        num_epochs=2, seed=0, **_sinkhorn_kw("sinkhorn"),
+        dataset=DatasetConfig(source_point_num=128, target_point_num=128, num_synthetic=320,
+                              synthetic_kinds=("composite",), cache_dir=str(tmp_path / "mc"),
+                              transform=TransformConfig(noise_sigma=0.02)))
+
+    def fit():
+        trainer = Trainer(cfg)
+        res = trainer.fit(RegistrationDataset(cfg.dataset, "train"), verbose=False)
+        assert res["path"] == "fused"
+        del trainer, res
+        gc.collect()
+        return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+    fit()
+    start = torch.cuda.memory_allocated()
+    marks = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        marks.append(fit())
+    print("start", start, "after, peak", marks)
+    block = 2 << 20
+    assert all(abs(after - start) <= block for after, _ in marks), (start, marks)
+    assert abs(marks[1][1] - marks[0][1]) <= block, marks
+
+
+@pytest.mark.gpu
+def test_sinkhorn_div_1024_train_step_fits(cuda, tmp_path):
+    """One train step of the w_cos_1024_sinkhorn_div row (B=128, N=M=1024:
+    two solves of three (128, 1024, 1024) costs, 4 x 50 plain dual
+    iterations each) runs on the card with a finite loss, and its peak is
+    under a tenth of what the final solve's dual iterations would hold if
+    autograd recorded them (~4 (B, N, M) f32 tensors an iteration, 3 x 800
+    x 512 MiB)."""
+    import dataclasses
+
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.train import Trainer
+    rows = _row_harness("registration_rows_torch")
+    cfg = rows.row_config("w_cos_1024_sinkhorn_div", 0, str(tmp_path), 1)
+    cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+        cfg.dataset, num_synthetic=160, cache_dir=str(tmp_path / "mc")))
+    trainer = Trainer(cfg)
+    ds = RegistrationDataset(cfg.dataset, "train")
+    state = trainer.init_state(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = next(ds.batches(gen, np.arange(128), 128, shuffle=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = trainer._train_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tp_ = cfg.shwd.transport
+    recorded = 3 * (4 * tp_.num_iters * tp_.num_scales) * 128 * 1024 * 1024 * 4
+    print("peak bytes", peak, "recorded duals bytes", recorded)
+    assert torch.isfinite(loss) and peak < recorded / 10
+
+
+@pytest.mark.gpu
+def test_ellipsoid_flow_fused_equals_per_step_with_the_decaying_lr(cuda):
+    """The ellipsoid_2 SHWD/hybrid flow (the JAX row's 1000-point clouds,
+    K1 and K2) with the cosine-decayed point lr, cut to 100 iterations
+    (the schedule decays over those 100): the captured step replayed with
+    the lr tensor filled between replays gives the per-step loop's points
+    at iteration 50 and at the end (atol 1e-5)."""
+    import dataclasses
+
+    from shwd_torch.train import flow_driver as fd
+    flows = _row_harness("flow_rows_torch")
+    src, tgt = flows.clouds("ellipsoid_2")
+    cfg = dataclasses.replace(flows.flow_config("ellipsoid_2", "SHWD"), num_iterations=100,
+                              eval_interval=50)
+    assert cfg.lr_decay_alpha == 0.1
+    seen = {True: [], False: []}
+    out = {}
+    for fused in (True, False):
+        def keep(p, t, fused=fused):
+            seen[fused].append(p.copy())
+            return 0.0
+        out[fused] = fd.run_flow(src, tgt, cfg, eval_fn=keep, fused=fused)
+    assert out[True].path == "fused" and out[False].path.startswith("per_step")
+    assert out[True].graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2}
+    np.testing.assert_allclose(seen[True][1], seen[False][1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out[True].clouds, out[False].clouds, rtol=0, atol=1e-5)
+    assert not np.array_equal(seen[True][1], seen[True][0])

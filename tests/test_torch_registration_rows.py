@@ -40,8 +40,9 @@ LAM, PHI_LR, PHI_WD = (1.3111961119405346e-05, 9.213233310357477e-05,
                        1.4096013153858628e-08)
 
 
-def _train_bench(criterion, epochs, solver=None, tag=""):
-    """``benchmarks/train_bench.py::run`` at point_num 128, 2048 shapes."""
+def _train_bench(criterion, epochs, solver=None, tag="", point_num=128):
+    """``benchmarks/train_bench.py::run`` with 2048 shapes (the tag is
+    ``_<point_num>_<solver>`` where the script is given both)."""
     shwd = jt.TrainConfig.__dataclass_fields__["shwd"].default
     if solver is not None:
         shwd = JSHWD(transport=JTransport(cost="geodesic" if solver == "ssw" else "lp",
@@ -51,7 +52,7 @@ def _train_bench(criterion, epochs, solver=None, tag=""):
         experiment=f"bench_{criterion}{tag}", log_dir="log", criterion=criterion,
         shwd=shwd,
         dataset=jd.DatasetConfig(
-            source_point_num=128, target_point_num=128, num_synthetic=2048,
+            source_point_num=point_num, target_point_num=point_num, num_synthetic=2048,
             synthetic_kinds=("composite",), cache_dir="modelnet_cache",
             transform=jd.TransformConfig(noise_sigma=0.02)),
         num_epochs=epochs,
@@ -59,18 +60,34 @@ def _train_bench(criterion, epochs, solver=None, tag=""):
         batch_size=128, pcr_iteration_num=3, nan_guard=(solver != "hybrid"))
 
 
-def _meshbank():
-    """``benchmarks/meshbank_bench.py 128 6000 sinkhorn 1e-3 7`` (the
-    520-mesh bank takes batch 128)."""
-    shwd = JSHWD(transport=JTransport(cost="lp", p=2.0, solver="sinkhorn"),
+def _meshbank(n=128, epochs=6000, seed=7):
+    """``benchmarks/meshbank_bench.py <n> <epochs> <solver> 1e-3 <seed>``
+    with the script's default solver (``ssw`` from N=512; the 520-mesh bank
+    takes batch 128)."""
+    solver = "ssw" if n >= 512 else "sinkhorn"
+    shwd = JSHWD(transport=JTransport(cost="geodesic" if solver == "ssw" else "lp",
+                                      p=2.0, solver=solver),
                  max_iter=1, lam=LAM, phi_lr=PHI_LR, phi_weight_decay=PHI_WD)
     return jt.TrainConfig(
-        experiment="meshbank_w_cos_128", log_dir="log", criterion="w_cos", shwd=shwd,
-        dataset=jd.DatasetConfig(source_point_num=128, target_point_num=128,
+        experiment=f"meshbank_w_cos_{n}", log_dir="log", criterion="w_cos", shwd=shwd,
+        dataset=jd.DatasetConfig(source_point_num=n, target_point_num=n,
                                  modelnet_root="mesh_bank", cache_dir="meshbank_cache",
                                  transform=jd.TransformConfig(noise_sigma=0.02)),
-        num_epochs=6000, batch_size=128, lr=1e-3, weight_decay=PHI_WD, seed=7,
+        num_epochs=epochs, batch_size=128, lr=1e-3, weight_decay=PHI_WD, seed=seed,
         pcr_iteration_num=3, nan_guard=False)
+
+
+def _robust(name, noise_sigma, outlier_num=0, outlier_sigma=1.0):
+    """``benchmarks/robustness_bench.py::run`` of one setting at the
+    recorded budget (``robustness_tpu.json``: 100 epochs, 2048 shapes)."""
+    return jt.TrainConfig(
+        experiment=f"robust_{name}", log_dir="log", criterion="w_cos",
+        dataset=jd.DatasetConfig(
+            source_point_num=128, target_point_num=128, num_synthetic=2048,
+            synthetic_kinds=("composite",), cache_dir="modelnet_cache",
+            transform=jd.TransformConfig(noise_sigma=noise_sigma, outlier_num=outlier_num,
+                                         outlier_sigma=outlier_sigma)),
+        num_epochs=100, batch_size=128, pcr_iteration_num=3, nan_guard=True)
 
 
 def _max_ssw():
@@ -97,6 +114,18 @@ JAX_CONFIGS = {
     "pseudo_w_cos": lambda: _train_bench("pseudo_w_cos", 150),
     "cd": lambda: _train_bench("cd", 300),
     "max_ssw": _max_ssw,
+    # the first run of resume_max_ssw.py's schedule, less the 700 planned
+    # epochs: the JAX run was cut at 506 (registration_tpu.json)
+    "max_ssw_resume": lambda: dataclasses.replace(_max_ssw(), num_epochs=506),
+    "robust_noise_0.00": lambda: _robust("noise_0.00", 0.0),
+    "robust_noise_0.02": lambda: _robust("noise_0.02", 0.02),
+    "robust_noise_0.04": lambda: _robust("noise_0.04", 0.04),
+    "robust_noise_0.10": lambda: _robust("noise_0.10", 0.1),
+    "robust_outliers_10": lambda: _robust("outliers_10", 0.02, 10, 1.0),
+    "w_cos_1024_ssw": lambda: _train_bench("w_cos", 160, "ssw", "_1024_ssw", 1024),
+    "w_cos_meshbank_1024": lambda: _meshbank(1024, 2000, 1234),
+    "w_cos_1024_sinkhorn_div": lambda: _train_bench("w_cos", 96, "sinkhorn_div",
+                                                    "_1024_sinkhorn_div", 1024),
 }
 
 
@@ -127,14 +156,38 @@ def test_resume_config_equals_resume_hybrid():
     assert port == jax_cfg
 
 
+def test_resume_config_equals_resume_max_ssw():
+    """``max_ssw_resume`` with ``--resume 900`` continues as
+    ``benchmarks/resume_max_ssw.py 900`` did: from the 506-epoch run's
+    ``best_rot_error_snap`` to 900 epochs, the combined snapshot (weight
+    100) kept. ~0.1 s."""
+    port = rows.resume_config(rows.row_config("max_ssw_resume", log_dir="log"), 900)
+    jax_cfg = dataclasses.replace(
+        _max_ssw(), load_model="log/bench_max_ssw/models/best_rot_error_snap")
+    port, jax_cfg = dataclasses.asdict(port), dataclasses.asdict(jax_cfg)
+    assert port.pop("nan_guard") is False
+    jax_cfg.pop("nan_guard")
+    assert port == jax_cfg
+    assert rows.snapshot_name("max_ssw_resume") == "best_combined_snap"
+    assert rows.RESUME_TARGETS["max_ssw_resume"] == {"test_mean_rot_error": 5.0,
+                                                     "test_mean_trans_error": 0.02}
+
+
+BANK_ROWS = {"composite": "w_cos", "mesh_bank": "w_cos_meshbank_128",
+             "composite_1024": "w_cos_1024_ssw", "mesh_bank_1024": "w_cos_meshbank_1024"}
+
+
 @pytest.mark.parametrize("bank,split", [("composite", "train"), ("composite", "test"),
-                                        ("mesh_bank", "train"), ("mesh_bank", "test")])
+                                        ("mesh_bank", "train"), ("mesh_bank", "test"),
+                                        ("composite_1024", "test"),
+                                        ("mesh_bank_1024", "test")])
 def test_banks_and_splits_equal_the_jax_package(bank, split, tmp_path):
     """The 2048-shape composite bank and the OFF bank of ``mesh_bank/``
-    (through each package's ``preprocess_modelnet``, its own cache) are
-    the JAX package's bit for bit, and so is the train/val split of every
-    seed the rows run. ~1 s (composite), ~4 s (the 520 train meshes)."""
-    row = "w_cos" if bank == "composite" else "w_cos_meshbank_128"
+    (through each package's ``preprocess_modelnet``, its own cache), at
+    128 points and at the 1024 of the N=1024 rows, are the JAX package's
+    bit for bit, and so is the train/val split of every seed the rows run.
+    ~1 s (composite), ~4 s (the 520 train meshes)."""
+    row = BANK_ROWS[bank]
     ds_cfg = rows.row_config(row).dataset
     root = str(ROOT / ds_cfg.modelnet_root) if ds_cfg.modelnet_root else None
     args = (ds_cfg.source_point_num, split, root)
@@ -142,9 +195,10 @@ def test_banks_and_splits_equal_the_jax_package(bank, split, tmp_path):
               synthetic_kinds=ds_cfg.synthetic_kinds)
     port = t_modelnet.load_dataset(*args, cache_dir=str(tmp_path / "t"), **kw)
     ref = j_modelnet.load_dataset(*args, cache_dir=str(tmp_path / "j"), **kw)
-    want = {("composite", "train"): 2048, ("composite", "test"): 512,
-            ("mesh_bank", "train"): 520, ("mesh_bank", "test"): 120}[bank, split]
-    assert port.shape == ref.shape == (want, 128, 3)
+    want = {"train": 2048, "test": 512} if bank.startswith("composite") else {
+        "train": 520, "test": 120}
+    want = want[split]
+    assert port.shape == ref.shape == (want, ds_cfg.source_point_num, 3)
     assert port.dtype == ref.dtype and np.array_equal(port, ref)
     if split == "train":
         cfg = dataclasses.replace(ds_cfg, modelnet_root=root, cache_dir=str(tmp_path / "t"))

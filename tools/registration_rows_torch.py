@@ -17,16 +17,32 @@ values of the script that made it:
     1e-3, 6000 epochs);
   - ``max_ssw``: variant P of ``benchmarks/final_max_ssw.py`` (mlp chart,
     512 projections, p = 1) with ``checkpoint_combined_weight=100`` as
-    ``benchmarks/resume_max_ssw.py`` set it, 900 epochs in one run.
+    ``benchmarks/resume_max_ssw.py`` set it, 900 epochs in one run;
+  - ``max_ssw_resume``: the same on the JAX row's schedule, 506 epochs,
+    then ``--resume 900`` from its ``best_rot_error_snap``, as
+    ``benchmarks/resume_max_ssw.py`` did; the combined snapshot is held to
+    that script's target (held-out rotation <= 5 deg and translation <=
+    0.02 from one checkpoint);
+  - ``robust_noise_0.00`` ... ``robust_noise_0.10``,
+    ``robust_outliers_10``: ``benchmarks/robustness_bench.py`` (``w_cos``
+    with TrainConfig's SHWD, 2048 shapes, 100 epochs; the JAX rows,
+    ``benchmarks/robustness_tpu.json``, hold the best validation rotation
+    error only);
+  - ``w_cos_1024_ssw``, ``w_cos_1024_sinkhorn_div``: ``train_bench.py
+    w_cos <epochs> ... 1024 <solver>`` (N=M=1024; the ``ssw`` solver on
+    the geodesic cost, the Sinkhorn divergence on the Lp cost);
+  - ``w_cos_meshbank_1024``: ``meshbank_bench.py 1024 2000 ssw`` (the OFF
+    bank at 1024 points, seed 1234, lr 1e-3).
 
 A run is ``Trainer.fit`` (fused, on the card unless ``--device cpu``) and
 then ``evaluate`` on the test split at the row's snapshot
-(``best_rot_error_snap``; ``best_combined_snap`` for ``max_ssw``). The JAX
+(``best_rot_error_snap``; ``best_combined_snap`` for ``max_ssw*``). The JAX
 rows ran with ``nan_guard=True`` (``hybrid`` without): here every row runs
 without it, on the fused path, and a non-finite epoch metric fails the run.
-One JSON row per (row, seed) is written into ``--out`` (replacing the
-earlier one), with the curves, the held-out errors, the bar the row is
-held to and the JAX row beside it. Checkpoints go under ``--log-dir``.
+One JSON row per (row, seed, epochs) is written into ``--out``
+(replacing the earlier one), with the curves, the held-out errors, the
+bar the row is held to and the JAX row beside it. Checkpoints go under
+``--log-dir``.
 
     python3 tools/registration_rows_torch.py --rows w_cos --seeds 1234
     python3 tools/registration_rows_torch.py --rows w_cos_128_hybrid --resume 2500
@@ -59,8 +75,15 @@ LAM = 1.3111961119405346e-05
 PHI_LR = 9.213233310357477e-05
 PHI_WD = 1.4096013153858628e-08
 
+# benchmarks/robustness_bench.py::SETTINGS -> the JAX row's best val rotation
+ROBUST = {"noise_0.00": (0.0, 0, 4.025010181231138),
+          "noise_0.02": (0.02, 0, 5.6268083320561715),
+          "noise_0.04": (0.04, 0, 4.4612664232044175),
+          "noise_0.10": (0.1, 0, 8.995007029955428),
+          "outliers_10": (0.02, 10, 13.716274235825667)}
+
 # row -> (epochs, the JAX row's seed, its held-out file, best and held-out
-# rotation bars in deg: 1.5x the JAX row, None where only held-out is held)
+# rotation bars in deg: 1.5x the JAX row, None where that error is not held)
 ROWS = {
     "w_cos": (2000, 1234, "eval_bench_w_cos.json", 2.5, 2.6),
     "w_cos_128_hybrid": (2000, 1234, "eval_bench_w_cos_128_hybrid.json", 2.25, 2.35),
@@ -71,7 +94,19 @@ ROWS = {
                      1.5 * 2.8614706993103027),
     "cd": (300, 1234, "eval_bench_cd.json", None, 1.5 * 4.56306791305542),
     "max_ssw": (900, 1234, "eval_bench_max_ssw.json", None, 1.5 * 3.096400499343872),
+    "max_ssw_resume": (506, 1234, "eval_bench_max_ssw.json", None,
+                       1.5 * 3.096400499343872),
+    **{f"robust_{name}": (100, 1234, None, 1.5 * best, None)
+       for name, (_, _, best) in ROBUST.items()},
+    "w_cos_1024_ssw": (160, 1234, "eval_bench_w_cos_1024_ssw.json",
+                       1.5 * 1.634549958490218, 1.5 * 1.7178146839141846),
+    "w_cos_meshbank_1024": (2000, 1234, None, None, 1.5 * 6.76185417175293),
+    "w_cos_1024_sinkhorn_div": (96, 1234, None, 1.5 * 5.5309271812438965, None),
 }
+# benchmarks/resume_max_ssw.py:5-7: held-out rotation and translation of
+# the combined snapshot after the resume, from one checkpoint
+RESUME_TARGETS = {"max_ssw_resume": {"test_mean_rot_error": 5.0,
+                                     "test_mean_trans_error": 0.02}}
 SUCCESS_DEG = 5.0
 METRICS = ("train_loss", "val_loss", "rot_error", "trans_error")
 
@@ -93,17 +128,36 @@ def row_config(row: str, seed: int | None = None, log_dir: str = "log",
                   batch_size=128, pcr_iteration_num=3, nan_guard=False)
 
     def shwd(solver):
-        return SHWDConfig(transport=TransportConfig(cost="lp", p=2.0, solver=solver),
+        # train_bench.py and meshbank_bench.py: the geodesic cost on ssw
+        cost = "geodesic" if solver == "ssw" else "lp"
+        return SHWDConfig(transport=TransportConfig(cost=cost, p=2.0, solver=solver),
                           max_iter=1, lam=LAM, phi_lr=PHI_LR, phi_weight_decay=PHI_WD)
 
-    if row == "w_cos_meshbank_128":
+    if row.startswith("w_cos_meshbank_"):
+        n = int(row.rsplit("_", 1)[1])
         return TrainConfig(
-            experiment="meshbank_w_cos_128", criterion="w_cos", shwd=shwd("sinkhorn"),
-            dataset=DatasetConfig(source_point_num=128, target_point_num=128,
+            experiment=f"meshbank_w_cos_{n}", criterion="w_cos",
+            shwd=shwd("ssw" if n >= 512 else "sinkhorn"),
+            dataset=DatasetConfig(source_point_num=n, target_point_num=n,
                                   modelnet_root="mesh_bank", cache_dir="meshbank_cache",
                                   transform=TransformConfig(noise_sigma=0.02)),
             lr=1e-3, weight_decay=PHI_WD, **common)
-    if row == "max_ssw":
+    if row.startswith("robust_"):
+        name = row[len("robust_"):]
+        noise, outliers, _ = ROBUST[name]
+        return TrainConfig(
+            experiment=row, criterion="w_cos",
+            dataset=dataclasses.replace(bank, transform=TransformConfig(
+                noise_sigma=noise, outlier_num=outliers, outlier_sigma=1.0)),
+            **common)
+    if row.startswith("w_cos_1024_"):
+        solver = row[len("w_cos_1024_"):]
+        return TrainConfig(
+            experiment=f"bench_{row}", criterion="w_cos", shwd=shwd(solver),
+            dataset=dataclasses.replace(bank, source_point_num=1024, target_point_num=1024),
+            max_ssw=MaxSSWConfig(num_projections=100, max_iter=1, phi_lr=9.2e-5),
+            **common)
+    if row in ("max_ssw", "max_ssw_resume"):
         return TrainConfig(
             experiment="bench_max_ssw", criterion="max_ssw", max_ssw_chart="mlp",
             max_ssw=MaxSSWConfig(num_projections=512, max_iter=1, phi_lr=PHI_LR, p=1.0),
@@ -124,7 +178,7 @@ def resume_config(cfg, total: int):
 
 
 def snapshot_name(row: str) -> str:
-    return "best_combined_snap" if row == "max_ssw" else "best_rot_error_snap"
+    return "best_combined_snap" if row.startswith("max_ssw") else "best_rot_error_snap"
 
 
 def card_line() -> str | None:
@@ -153,12 +207,19 @@ def source_digest() -> str:
 def jax_row(row: str) -> dict:
     """The JAX row's recorded numbers (TPU times left out)."""
     _, _, eval_file, _, _ = ROWS[row]
-    rows = json.loads((ROOT / "benchmarks" / "registration_tpu.json").read_text())
-    rec = next(r for r in rows if r["criterion"] == row)
+    if row.startswith("robust_"):
+        rows = json.loads((ROOT / "benchmarks" / "robustness_tpu.json").read_text())
+        rec = next(r for r in rows if r["setting"] == row[len("robust_"):])
+    else:
+        rows = json.loads((ROOT / "benchmarks" / "registration_tpu.json").read_text())
+        name = "max_ssw" if row == "max_ssw_resume" else row
+        rec = next(r for r in rows if r["criterion"] == name)
     out = {k: rec[k] for k in ("epochs", "best_rot_error", "best_trans_error",
                                "final_rot_error", "test_mean_rot_error",
                                "test_mean_trans_error", "resumed_to_epoch",
-                               "held_out_after_resume_rot") if k in rec}
+                               "held_out_after_resume_rot", "combined_snap_held_out_rot",
+                               "combined_snap_held_out_trans", "rot_curve_every10")
+           if k in rec}
     if eval_file:
         ev = json.loads((ROOT / "benchmarks" / eval_file).read_text())
         out["test_mean_rot_error"] = ev["mean_rot_error_deg"]
@@ -246,22 +307,38 @@ def run(row: str, seed: int, args) -> dict:
     cfg = row_config(row, seed, str(Path(args.log_dir) / f"{row}_s{seed}"), args.epochs)
     head = {"row": row, "criterion": row, "seed": cfg.seed,
             "card": card_line(), "commit": args.commit,
-            "source_sha256_16": source_digest(), "torch": torch.__version__}
+            "source_sha256_16": source_digest(), "torch": torch.__version__,
+            # what earlier fits of this process left allocated on the card
+            "allocated_before_bytes": (torch.cuda.memory_allocated()
+                                       if args.device is None else None)}
+    bar = {"best_rot_error": ROWS[row][3], "test_mean_rot_error": ROWS[row][4]}
     if args.resume is None:
-        out = {**head, "epochs": cfg.num_epochs, "nan_guard": cfg.nan_guard,
-               "bar": {"best_rot_error": ROWS[row][3], "test_mean_rot_error": ROWS[row][4]},
+        out = {**head, "epochs": cfg.num_epochs, "row_epochs": ROWS[row][0],
+               "nan_guard": cfg.nan_guard, "bar": bar,
                **fit_and_evaluate(cfg, row, args.device), "jax_row": jax_row(row)}
-        out["meets_bar"] = ((out["bar"]["best_rot_error"] is None
-                             or out["best_rot_error"] <= out["bar"]["best_rot_error"])
-                            and out["test_mean_rot_error"] <= out["bar"]["test_mean_rot_error"])
-        return out
+        return judge(out)
     cfg = resume_config(cfg, args.resume)
     part = fit_and_evaluate(cfg, row, args.device)
     part.update(card=head["card"], source_sha256_16=head["source_sha256_16"],
-                resumed_from_epoch=part["first_epoch"] - 1, resumed_to_epoch=args.resume)
-    out = next((r for r in load_rows(args.out)
-                if r["row"] == row and r["seed"] == cfg.seed), dict(head))
+                resumed_from_epoch=part["first_epoch"] - 1, resumed_to_epoch=args.resume,
+                bar=bar)
+    judge(part)
+    if row in RESUME_TARGETS:
+        target = RESUME_TARGETS[row]
+        part["target"] = target
+        part["meets_target"] = all(part[k] <= v for k, v in target.items())
+    first = ROWS[row][0] if args.epochs is None else args.epochs
+    out = next((r for r in load_rows(args.out) if ident(r) == (row, cfg.seed, first)),
+               dict(head, epochs=first))
     out["resume"] = part
+    return out
+
+
+def judge(out: dict) -> dict:
+    """``meets_bar``: every error the row holds (a bar not None) is at or
+    under its bar; ``verdict`` says "met" or "MISSED"."""
+    out["meets_bar"] = all(out[k] <= v for k, v in out["bar"].items() if v is not None)
+    out["verdict"] = "met" if out["meets_bar"] else "MISSED"
     return out
 
 
@@ -270,11 +347,15 @@ def load_rows(path) -> list:
     return json.loads(p.read_text()) if p.exists() else []
 
 
+def ident(row: dict) -> tuple:
+    """A stored row's key: (row, seed, epochs of its first run)."""
+    return row["row"], row["seed"], row["epochs"]
+
+
 def store(path, row: dict) -> None:
-    rows = [r for r in load_rows(path)
-            if (r["row"], r["seed"]) != (row["row"], row["seed"])]
+    rows = [r for r in load_rows(path) if ident(r) != ident(row)]
     rows.append(row)
-    rows.sort(key=lambda r: (list(ROWS).index(r["row"]), r["seed"]))
+    rows.sort(key=lambda r: (list(ROWS).index(r["row"]), r["seed"], r["epochs"]))
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(rows, indent=1) + "\n")
 
@@ -282,7 +363,9 @@ def store(path, row: dict) -> None:
 def summary(row: dict) -> dict:
     keys = ("row", "seed", "best_rot_error", "test_mean_rot_error",
             "test_mean_trans_error", "rot_success_ratio_5deg", "s_per_epoch",
-            "s_per_epoch_median", "ms_per_train_step", "meets_bar", "nonfinite_epochs")
+            "s_per_epoch_median", "ms_per_train_step", "peak_mem_bytes",
+            "allocated_before_bytes", "meets_bar", "verdict", "meets_target",
+            "nonfinite_epochs")
     out = {k: row[k] for k in keys if k in row}
     if "resume" in row:
         out["resume"] = {k: row["resume"][k] for k in keys if k in row["resume"]}
