@@ -80,6 +80,16 @@ Phases, each printing one JSON line:
   5b. registration_outliers: the robust_outliers_10 row (10 points of
      every source replaced by N(0, 1) draws), seed 0, 20 epochs, fused:
      finite, the validation rotation error below epoch 1's, K3 counted;
+  5c. jax_init: the JAX package's seed-1234 initial states
+     (tools/init_states_jax.npz) loaded on the card through the row
+     harness's loader: PCRNet's pose on the file's check batch within
+     rtol 1e-4 / atol 1e-5 of the JAX package's, each criterion's value
+     within rtol 1e-4 (w_cos and pseudo_w_cos through K3, against the JAX
+     package's fused kernel in interpret mode on the CPU, K3 counted:
+     once for w_cos, once per frozen flow of pseudo_w_cos; max_ssw and
+     w_cos on ssw with the JAX call's frames); then 2 epochs of w_cos
+     fitted from that state (an epoch-0 checkpoint) on the 256-shape bank,
+     fused: every metric finite, K3 counted;
   6. evaluate: shwd_torch.train.evaluate.evaluate on the sinkhorn run's
      best-rotation checkpoint, the test split, on the card by default;
      both success curves non-decreasing to 1.0, five thresholds recounted
@@ -145,7 +155,8 @@ K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 "launches_cd_twins" K4's
 on the twins, "launches_ellipsoid" K1's and K2's and "launches_ellipsoid_cd"
 K4's in phase flow_ellipsoid, "launches_outliers" K3's in phase
-registration_outliers, "launches_per_call" is phase 8's count), a
+registration_outliers, "launches_jax_init" K3's in phase jax_init's fit,
+"launches_per_call" is phase 8's count), a
 "phase_seconds" line after each phase added in slice 11, the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. Without CUDA, or without the
@@ -197,6 +208,11 @@ REG_PLATEAU_DEG = 50.0
 LEARN_EPOCHS = 150
 LEARN_ROT_DEG = 10.0              # best validation rotation error
 LEARN_TRANS = 0.02                # last-quarter mean validation translation error
+# Phase jax_init: the card against the JAX package's values on the CPU
+# (f32 products in another order; K3 against the kernel's interpret mode)
+JAX_INIT_POSE_TOL = dict(rtol=1e-4, atol=1e-5)
+JAX_INIT_VALUE_TOL = dict(rtol=1e-4, atol=0.0)
+JAX_INIT_EPOCHS = 2
 
 
 def emit(obj) -> None:
@@ -1658,6 +1674,55 @@ def phase_registration_outliers(dev, log_dir):
     return run["launches"]["sinkhorn_points"]
 
 
+def phase_jax_init(dev, log_dir):
+    """The JAX package's seed-1234 initial states, loaded on the card by
+    the row harness (``jax_init_state``): PCRNet's pose and each stored
+    criterion's value on the file's check batch against the JAX package's
+    (``jax_init_check``; JAX_INIT_POSE_TOL, JAX_INIT_VALUE_TOL); then
+    JAX_INIT_EPOCHS epochs of w_cos from that state, written as an epoch-0
+    checkpoint and loaded by the fit, on the 256-shape bank, fused: every
+    metric finite, K3 twice per train step and once per eval batch as
+    graph nodes x replays plus the warm-ups. The check's w_cos and
+    pseudo_w_cos values must take K3: once for w_cos and once per frozen
+    flow. Returns K3's launches in the fit."""
+    from shwd_torch.ops import sinkhorn_fused as sp
+    rows = tool("registration_rows_torch")
+    checks = []
+    sp.sinkhorn_points.launches = 0
+    values = rows.jax_init_check(dev)
+    check_k3 = sp.sinkhorn_points.launches
+    check_k3_want = 1 + rows.row_config("pseudo_w_cos", 1234).pseudo_phi_num
+    for name, port, want in values:
+        port = port.reshape(want.shape)
+        tol = JAX_INIT_POSE_TOL if name in ("est_R", "est_t") else JAX_INIT_VALUE_TOL
+        checks.append({"name": name, "max_abs_err": float(np.max(np.abs(port - want))),
+                       "max_rel_err": float(np.max(np.abs(port - want)
+                                                   / np.maximum(np.abs(want), 1e-30))),
+                       "ok": bool(np.allclose(port, want, **tol)), "tol": tol})
+    emit({"phase": "jax_init", "checks": checks, "k3_launches": check_k3,
+          "k3_launches_expected": check_k3_want})
+    for c in checks:
+        check(c["ok"], f"jax_init: {c['name']} off the JAX package's by {c['max_abs_err']}")
+    check(check_k3 == check_k3_want,
+          f"jax_init: the check launched K3 {check_k3} times, expected {check_k3_want}")
+    cfg = rows.row_config("w_cos", 1234, str(log_dir), JAX_INIT_EPOCHS)
+    cfg = dataclasses.replace(cfg, experiment="jax_init", dataset=dataclasses.replace(
+        cfg.dataset, num_synthetic=REG_SHAPES))
+    cfg = rows.jax_init_config(cfg, "w_cos", dev)
+    run, _, res, _ = run_registration(dev, cfg)
+    check_fused_launches("jax_init", run, "sinkhorn_points", 2, 1)
+    want = 2 * run["train_steps"] + run["eval_batches"] + 2 + (len(run["graphs"]) - 1)
+    emit({"phase": "jax_init_fit", "row": "w_cos", "seed": cfg.seed, "init": "jax",
+          "epochs": run["epochs"], "first_epoch": res["history"][0]["epoch"],
+          "history": run["history"], "ms_per_train_step": run["ms_per_train_step"],
+          "k3_launches": run["launches"]["sinkhorn_points"], "k3_launches_expected": want})
+    check(res["history"][0]["epoch"] == 1 and run["epochs"] == JAX_INIT_EPOCHS,
+          f"jax_init: the fit ran epochs {[r['epoch'] for r in res['history']]}")
+    check(run["launches"]["sinkhorn_points"] == want,
+          f"jax_init: K3 launched {run['launches']['sinkhorn_points']} times, expected {want}")
+    return run["launches"]["sinkhorn_points"]
+
+
 def phase_sinkhorn_div_1024(dev, log_dir):
     """The w_cos_1024_sinkhorn_div row's config (the debiased Sinkhorn
     divergence, plain PyTorch in both packages: three (128, 1024, 1024)
@@ -2124,6 +2189,7 @@ def main() -> int:
         k3["launches"] = reg_launches["sinkhorn_points"]
         k3["launches_learns"] = phase_registration_learns(dev, log_dir)
         k3["launches_outliers"] = timed(phase_registration_outliers, dev, log_dir)
+        k3["launches_jax_init"] = timed(phase_jax_init, dev, log_dir)
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
         k3["launches_data_parallel"] = phase_data_parallel(dev, log_dir, sink_cfg, sink_res)
         del sink_res

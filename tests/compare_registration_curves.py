@@ -13,13 +13,20 @@ is the method's or the port's.
 
     python tests/compare_registration_curves.py [--epochs 40] [--side both]
         [--seeds 0 1 2] [--device cpu|cuda] [--plain-route]
-        [--row w_cos --seed 1234]
+        [--row w_cos --seed 1234 [--init jax]]
 
 ``--row`` takes instead the config of one row of
 ``tools/registration_rows_torch.py`` (its bank, ``modelnet_root`` and exact
 knobs; ``--solver`` is ignored then), both sides from the same config,
 with ``--seed`` (default: the row's) for its seed; on the 2048-shape bank
 an epoch takes about 60 s per side on the CPU.
+
+``--init jax`` (with ``--row``) starts both sides from the JAX package's
+initial state of the row, ``tools/init_states_jax.npz`` (seed 1234 only):
+the JAX fit at that seed draws exactly that state, and the port loads it
+as an epoch-0 checkpoint (``--init jax`` of the row harness). The two
+curves then differ only by the per-batch transform draws (and, where the
+criterion draws them, the SSW frames).
 
 ``--side torch --device cuda`` runs the port alone on a card (no JAX is
 imported then); there ``--plain-route`` sends the transport through
@@ -39,6 +46,8 @@ import json
 import sys
 import tempfile
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -63,13 +72,18 @@ def config(pkg_data, pkg_losses, pkg_train, log_dir, epochs, solver):
         phi_num_flow_layer=3)
 
 
-def row_config(args, log_dir, seed):
-    """The port's config of ``args.row`` from the row harness."""
+def harness():
+    """tools/registration_rows_torch.py, the row harness."""
     spec = importlib.util.spec_from_file_location(
         "registration_rows_torch", ROOT / "tools" / "registration_rows_torch.py")
-    harness = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(harness)
-    return harness.row_config(args.row, seed, log_dir, args.epochs)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def row_config(args, log_dir, seed):
+    """The port's config of ``args.row`` from the row harness."""
+    return harness().row_config(args.row, seed, log_dir, args.epochs)
 
 
 def run_jax(log_dir, args, seed):
@@ -77,6 +91,12 @@ def run_jax(log_dir, args, seed):
     if args.row:
         from shwd_tpu.train.config import config_from_dict
         cfg = config_from_dict(json.loads(row_config(args, log_dir + "/jax", seed).to_json()))
+        if args.init == "jax":
+            # Trainer.fit draws the file's state at its seed: held bit for bit
+            # by tests/test_torch_init_states.py
+            stored = int(np.load(harness().INIT_FILE)["seed"])
+            if cfg.seed != stored:
+                raise ValueError(f"--init jax: the file holds seed {stored}, not {cfg.seed}")
     else:
         cfg = config(data, losses, train, log_dir + "/jax", args.epochs, args.solver)
         cfg = dataclasses.replace(cfg, seed=seed)
@@ -89,6 +109,8 @@ def run_torch(log_dir, args, seed):
     from shwd_torch.losses import transport
     if args.row:
         cfg = row_config(args, log_dir + "/torch", seed)
+        if args.init == "jax":
+            cfg = harness().jax_init_config(cfg, args.row, args.device)
     else:
         cfg = config(data, losses, train, log_dir + "/torch", args.epochs, args.solver)
         cfg = dataclasses.replace(cfg, seed=seed)
@@ -109,9 +131,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=None, help="one seed (adds to --seeds)")
     ap.add_argument("--row", default=None,
                     help="a row of tools/registration_rows_torch.py")
+    ap.add_argument("--init", choices=("torch", "jax"), default="torch",
+                    help="with --row: start from each package's own draw, or both "
+                         "from the JAX package's (tools/init_states_jax.npz)")
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--plain-route", action="store_true")
     args = ap.parse_args()
+    if args.init == "jax" and not args.row:
+        ap.error("--init jax needs --row")
     seeds = (args.seeds or []) + ([args.seed] if args.seed is not None else [])
     args.seeds = seeds or [None if args.row else 1234]
     out = {}
@@ -132,7 +159,7 @@ def main() -> int:
                 "train_loss_last_quarter": sum(r["train_loss"] for r in hist[-q:]) / q,
                 "rot_error_max": max(r["rot_error"] for r in hist),
                 "rot_error_min": min(r["rot_error"] for r in hist)}
-    print(json.dumps({"epochs": args.epochs, "row": args.row,
+    print(json.dumps({"epochs": args.epochs, "row": args.row, "init": args.init,
                       "solver": None if args.row else args.solver,
                       "device": args.device, "plain_route": args.plain_route,
                       **out}))

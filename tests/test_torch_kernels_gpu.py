@@ -1159,3 +1159,20 @@ def test_ellipsoid_flow_fused_equals_per_step_with_the_decaying_lr(cuda):
     np.testing.assert_allclose(seen[True][1], seen[False][1], rtol=0, atol=1e-5)
     np.testing.assert_allclose(out[True].clouds, out[False].clouds, rtol=0, atol=1e-5)
     assert not np.array_equal(seen[True][1], seen[True][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pose", "w_cos", "pseudo_w_cos", "max_ssw",
+                                  "w_cos_1024_ssw"])
+def test_jax_initial_state_on_the_card_gives_the_jax_values(cuda, name):
+    """chip_smoke.py's phase jax_init: the JAX package's seed-1234 states
+    (tools/init_states_jax.npz) loaded on the card by the row harness give
+    the file's JAX values on its check batch: the pose within rtol 1e-4 /
+    atol 1e-5, each criterion within rtol 1e-4 (w_cos and pseudo_w_cos
+    through K3, against the JAX package's fused kernel in interpret mode)."""
+    rows = _row_harness("registration_rows_torch")
+    checks = {n: (port, want) for n, port, want in rows.jax_init_check(cuda)}
+    for key in (["est_R", "est_t"] if name == "pose" else [name]):
+        port, want = checks[key]
+        tol = dict(rtol=1e-4, atol=1e-5) if name == "pose" else dict(rtol=1e-4, atol=0)
+        np.testing.assert_allclose(port.reshape(want.shape), want, **tol, err_msg=key)

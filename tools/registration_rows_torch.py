@@ -39,12 +39,23 @@ then ``evaluate`` on the test split at the row's snapshot
 (``best_rot_error_snap``; ``best_combined_snap`` for ``max_ssw*``). The JAX
 rows ran with ``nan_guard=True`` (``hybrid`` without): here every row runs
 without it, on the fused path, and a non-finite epoch metric fails the run.
-One JSON row per (row, seed, epochs) is written into ``--out``
+One JSON row per (row, seed, epochs, init) is written into ``--out``
 (replacing the earlier one), with the curves, the held-out errors, the
 bar the row is held to and the JAX row beside it. Checkpoints go under
 ``--log-dir``.
 
+A fit starts from the port's own draw at its seed (``--init torch``, the
+default: a ``torch.Generator`` seeded on the fit's device, so the CPU and
+the card start apart), or with ``--init jax`` from the state the JAX
+package's fit of the row draws at that seed, read from
+``tools/init_states_jax.npz`` (written by ``python
+tests/write_init_states.py``, which imports JAX; it holds seed 1234):
+PCRNet, the criterion's flows or chart and lam, with both Adam states
+zero at count 0. That state is written as a port checkpoint at epoch 0
+and the fit loads it through ``cfg.load_model``.
+
     python3 tools/registration_rows_torch.py --rows w_cos --seeds 1234
+    python3 tools/registration_rows_torch.py --rows w_cos --seeds 1234 --init jax
     python3 tools/registration_rows_torch.py --rows w_cos_128_hybrid --resume 2500
 
 ``--epochs`` cuts a row's length for a short run. A snapshot takes ~50 MB
@@ -56,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -109,6 +121,7 @@ RESUME_TARGETS = {"max_ssw_resume": {"test_mean_rot_error": 5.0,
                                      "test_mean_trans_error": 0.02}}
 SUCCESS_DEG = 5.0
 METRICS = ("train_loss", "val_loss", "rot_error", "trans_error")
+INIT_FILE = ROOT / "tools" / "init_states_jax.npz"
 
 
 def row_config(row: str, seed: int | None = None, log_dir: str = "log",
@@ -170,6 +183,113 @@ def row_config(row: str, seed: int | None = None, log_dir: str = "log",
         **extra, **common)
 
 
+def stored_tree(data, prefix: str):
+    """The JAX tree stored under ``prefix/`` in an npz of
+    ``tests/write_init_states.py`` (keys and indices joined by ``/``): a
+    node whose keys are all indices is a tuple; () where nothing is
+    stored (a chart without state)."""
+    root: dict = {}
+    for key in data.files:
+        if key.startswith(prefix + "/"):
+            *parts, leaf = key[len(prefix) + 1:].split("/")
+            node = root
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return tuple(build(node[k]) for k in sorted(node, key=int))
+        return {k: build(v) for k, v in node.items()}
+    return build(root)
+
+
+def jax_init_state(trainer, row: str, seed: int):
+    """The state the JAX package's fit of ``row`` at ``seed`` starts from,
+    on ``trainer``'s device: a fresh state of ``trainer.init_state`` (the
+    criterion's generator seeded with ``seed``, as ``Trainer.fit`` seeds
+    it) with PCRNet, the criterion's flows or chart and lam read from
+    ``INIT_FILE``; both Adam states are fresh (zero at count 0)."""
+    from shwd_torch.utils.convert import load_chart, load_pcrnet, load_phi, load_pseudo_phis
+    data = np.load(INIT_FILE)
+    names = [str(r) for r in data["rows"]]
+    if row not in names or seed != int(data["seed"]):
+        raise ValueError(f"{INIT_FILE.name} holds no JAX initial state of row {row!r} at "
+                         f"seed {seed} (rows {names} at seed {int(data['seed'])}; "
+                         "python tests/write_init_states.py writes it)")
+    state = trainer.init_state(torch.Generator(device=trainer.device).manual_seed(seed))
+    load_pcrnet(state.model, stored_tree(data, "pcrnet"))
+    entry = f"state/{data['row_state'][names.index(row)]}"
+    params = stored_tree(data, f"{entry}/phi_params")
+    fstate = stored_tree(data, f"{entry}/phi_state")
+    crit = state.crit_state
+    if trainer.cfg.criterion == "pseudo_w_cos":
+        load_pseudo_phis(crit.phis, params, fstate)
+    elif trainer.cfg.criterion == "max_ssw":
+        load_chart(crit.phi, params, fstate)
+    else:
+        load_phi(crit.phi, params, fstate)
+        with torch.no_grad():
+            crit.lam.copy_(torch.from_numpy(data[f"{entry}/lam"]))
+    return state
+
+
+def jax_init_config(cfg, row: str, device=None):
+    """``cfg`` fitted from the JAX package's initial state of ``row``: the
+    state written as a port checkpoint at epoch 0,
+    ``<log_dir>/<experiment>/models/jax_init``, which the returned
+    config's ``load_model`` names."""
+    from shwd_torch.train import Trainer
+    from shwd_torch.utils.checkpoint import save_checkpoint
+    state = jax_init_state(Trainer(cfg, device=device), row, cfg.seed)
+    path = Path(cfg.log_dir) / cfg.experiment / "models" / "jax_init"
+    save_checkpoint(path, state, 0)
+    return dataclasses.replace(cfg, load_model=str(path))
+
+
+@torch.no_grad()
+def jax_init_check(device=None) -> list:
+    """PCRNet's pose and each criterion's test-mode value on the check
+    batch of ``INIT_FILE``, from the states it holds, loaded by
+    ``jax_init_state``: [(name, the port's value, the JAX package's), ...]
+    as numpy arrays. Criteria that draw frames in test mode get the JAX
+    call's frames. On a CUDA device a ``sinkhorn`` transport takes the
+    fused kernel (K3), held to the JAX value through its fused kernel in
+    interpret mode (``value_kernel``); elsewhere the plain route's."""
+    from shwd_torch.device import resolve_device
+    from shwd_torch.train import Trainer
+    data = np.load(INIT_FILE)
+    seed, dev = int(data["seed"]), resolve_device(device)
+    source, target = (torch.from_numpy(data[f"check/{k}"]).to(dev) for k in ("source", "target"))
+    out, done = [], set()
+    for row, name in zip(map(str, data["rows"]), map(str, data["row_check"])):
+        if name in done:
+            continue
+        done.add(name)
+        cfg = row_config(row, seed)
+        trainer = Trainer(cfg, device=dev)
+        state = jax_init_state(trainer, row, seed)
+        if not out:
+            pose = state.model(target, source, cfg.pcr_iteration_num)
+            out += [("est_R", pose.est_R, data["check/est_R"]),
+                    ("est_t", pose.est_t, data["check/est_t"])]
+        crit = trainer.crit_apply.__self__
+        if f"check/{name}/frames" in data.files:
+            frames = torch.from_numpy(data[f"check/{name}/frames"]).to(dev)
+            if cfg.criterion == "max_ssw":
+                crit.draw = lambda minibatch, frames=frames: (frames, None)
+            else:
+                crit.transport = functools.partial(crit.transport, frames=frames)
+        (value, _, _), _ = trainer.crit_apply(state.crit_state, target, source, False)
+        key = f"check/{name}/value_kernel"
+        if dev.type != "cuda" or key not in data.files:
+            key = f"check/{name}/value"
+        out.append((name, value, data[key]))
+    return [(name, port.cpu().numpy(), want) for name, port, want in out]
+
+
 def resume_config(cfg, total: int):
     """``cfg`` continued from its ``best_rot_error_snap`` to ``total``
     epochs, as ``benchmarks/resume_hybrid.py`` continues its row."""
@@ -229,9 +349,11 @@ def jax_row(row: str) -> dict:
     return out
 
 
-def fit_and_evaluate(cfg, row: str, device) -> dict:
+def fit_and_evaluate(cfg, row: str, device, resume: bool = False) -> dict:
     """``Trainer.fit`` then ``evaluate`` on the test split at the row's
-    snapshot: the JAX rows' keys, times, peak memory and the final lam."""
+    snapshot: the JAX rows' keys, times, peak memory and the final lam.
+    The fit's initial state is evaluated first: its own draw, or the
+    checkpoint ``cfg.load_model`` names; a ``resume`` evaluates none."""
     from shwd_torch.data import RegistrationDataset
     from shwd_torch.train import Trainer
     from shwd_torch.train.evaluate import evaluate
@@ -239,12 +361,13 @@ def fit_and_evaluate(cfg, row: str, device) -> dict:
     dev = trainer.device
     ds = RegistrationDataset(cfg.dataset, "train", device=dev)
     init_ev = None
-    if not cfg.load_model:
+    if cfg.load_model and not resume:
+        init_ev = evaluate(cfg, checkpoint=cfg.load_model, split="test", device=dev)
+    elif not resume:
         # where the fit starts: its initial state (the first draws of the
         # generator fit seeds with cfg.seed) on the test split
-        init = trainer.init_state(torch.Generator(device=dev).manual_seed(cfg.seed))
-        init_ev = evaluate(cfg, state=init, split="test", device=dev)
-        del init
+        init_ev = evaluate(cfg, state=trainer.init_state(
+            torch.Generator(device=dev).manual_seed(cfg.seed)), split="test", device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -304,8 +427,9 @@ def run(row: str, seed: int, args) -> dict:
     """One (row, seed): a fit from scratch, or with ``--resume`` a fit
     from the row's ``best_rot_error_snap`` to that many epochs, merged into
     the row already in ``--out``."""
-    cfg = row_config(row, seed, str(Path(args.log_dir) / f"{row}_s{seed}"), args.epochs)
-    head = {"row": row, "criterion": row, "seed": cfg.seed,
+    tag = "_jax" if args.init == "jax" else ""
+    cfg = row_config(row, seed, str(Path(args.log_dir) / f"{row}_s{seed}{tag}"), args.epochs)
+    head = {"row": row, "criterion": row, "seed": cfg.seed, "init": args.init,
             "card": card_line(), "commit": args.commit,
             "source_sha256_16": source_digest(), "torch": torch.__version__,
             # what earlier fits of this process left allocated on the card
@@ -313,12 +437,14 @@ def run(row: str, seed: int, args) -> dict:
                                        if args.device is None else None)}
     bar = {"best_rot_error": ROWS[row][3], "test_mean_rot_error": ROWS[row][4]}
     if args.resume is None:
+        if args.init == "jax":
+            cfg = jax_init_config(cfg, row, args.device)
         out = {**head, "epochs": cfg.num_epochs, "row_epochs": ROWS[row][0],
                "nan_guard": cfg.nan_guard, "bar": bar,
                **fit_and_evaluate(cfg, row, args.device), "jax_row": jax_row(row)}
         return judge(out)
     cfg = resume_config(cfg, args.resume)
-    part = fit_and_evaluate(cfg, row, args.device)
+    part = fit_and_evaluate(cfg, row, args.device, resume=True)
     part.update(card=head["card"], source_sha256_16=head["source_sha256_16"],
                 resumed_from_epoch=part["first_epoch"] - 1, resumed_to_epoch=args.resume,
                 bar=bar)
@@ -328,8 +454,8 @@ def run(row: str, seed: int, args) -> dict:
         part["target"] = target
         part["meets_target"] = all(part[k] <= v for k, v in target.items())
     first = ROWS[row][0] if args.epochs is None else args.epochs
-    out = next((r for r in load_rows(args.out) if ident(r) == (row, cfg.seed, first)),
-               dict(head, epochs=first))
+    out = next((r for r in load_rows(args.out)
+                if ident(r) == (row, cfg.seed, first, args.init)), dict(head, epochs=first))
     out["resume"] = part
     return out
 
@@ -348,20 +474,21 @@ def load_rows(path) -> list:
 
 
 def ident(row: dict) -> tuple:
-    """A stored row's key: (row, seed, epochs of its first run)."""
-    return row["row"], row["seed"], row["epochs"]
+    """A stored row's key: (row, seed, epochs of its first run, init);
+    rows stored before ``init`` existed started from the port's draw."""
+    return row["row"], row["seed"], row["epochs"], row.get("init", "torch")
 
 
 def store(path, row: dict) -> None:
     rows = [r for r in load_rows(path) if ident(r) != ident(row)]
     rows.append(row)
-    rows.sort(key=lambda r: (list(ROWS).index(r["row"]), r["seed"], r["epochs"]))
+    rows.sort(key=lambda r: (list(ROWS).index(r["row"]), *ident(r)[1:]))
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(rows, indent=1) + "\n")
 
 
 def summary(row: dict) -> dict:
-    keys = ("row", "seed", "best_rot_error", "test_mean_rot_error",
+    keys = ("row", "seed", "init", "best_rot_error", "test_mean_rot_error",
             "test_mean_trans_error", "rot_success_ratio_5deg", "s_per_epoch",
             "s_per_epoch_median", "ms_per_train_step", "peak_mem_bytes",
             "allocated_before_bytes", "meets_bar", "verdict", "meets_target",
@@ -381,6 +508,9 @@ def main(argv=None) -> int:
                     help="cut each row to this many epochs")
     ap.add_argument("--resume", type=int, default=None, metavar="TOTAL",
                     help="continue from best_rot_error_snap to TOTAL epochs")
+    ap.add_argument("--init", choices=("torch", "jax"), default="torch",
+                    help="start from the port's draw at the seed, or from the JAX "
+                         "package's (tools/init_states_jax.npz)")
     ap.add_argument("--device", choices=("cpu",), default=None,
                     help="the card unless cpu (for tests)")
     ap.add_argument("--log-dir", default="log/registration_rows")
