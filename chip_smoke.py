@@ -90,6 +90,13 @@ Phases, each printing one JSON line:
      w_cos on ssw with the JAX call's frames); then 2 epochs of w_cos
      fitted from that state (an epoch-0 checkpoint) on the 256-shape bank,
      fused: every metric finite, K3 counted;
+  5d. replay: the w_cos row's config on the 256-shape bank, seed 0, 2
+     epochs on the per-step path, recorded by the row harness's
+     FitRecorder (the start state, every batch and draw of epochs 0-1),
+     beside the same fit unrecorded: both histories equal bit for bit;
+     then the port's replay of the record on the card (replay_port, the
+     recorded batches handed in): its history equal bit for bit; K3 twice
+     per train step and once per eval batch in each of the three;
   6. evaluate: shwd_torch.train.evaluate.evaluate on the sinkhorn run's
      best-rotation checkpoint, the test split, on the card by default;
      both success curves non-decreasing to 1.0, five thresholds recounted
@@ -156,6 +163,7 @@ K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 on the twins, "launches_ellipsoid" K1's and K2's and "launches_ellipsoid_cd"
 K4's in phase flow_ellipsoid, "launches_outliers" K3's in phase
 registration_outliers, "launches_jax_init" K3's in phase jax_init's fit,
+"launches_replay" K3's in phase replay's replay of the record,
 "launches_per_call" is phase 8's count), a
 "phase_seconds" line after each phase added in slice 11, the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
@@ -190,7 +198,8 @@ REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
 REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
               "ssw_1024": 3, "data_parallel": 4, "data_parallel_ab": 9, "sweep": 2,
-              "hpo": 2, "turns": 5, "outliers": 20, "sinkhorn_div": 2, "fit_memory": 2}
+              "hpo": 2, "turns": 5, "outliers": 20, "sinkhorn_div": 2, "fit_memory": 2,
+              "replay": 2}
 HELD_EPOCHS = 4                   # the per-step fits are held to the fused runs' first 4
 SSW_N = 1024                      # the w_cos_1024_ssw row's clouds
 # Of the seeds 0, 1, 2 and 1234 on an H100, the first three bring the model
@@ -1723,6 +1732,70 @@ def phase_jax_init(dev, log_dir):
     return run["launches"]["sinkhorn_points"]
 
 
+def phase_replay(dev, log_dir):
+    """The w_cos row's config (tools/registration_rows_torch.py) on the
+    256-shape bank, seed REG_SEED, REG_EPOCHS["replay"] epochs on the
+    per-step path (the path a record runs; bit for bit the fused one,
+    phase fused_vs_per_step): recorded (``FitRecorder``: the start state
+    and every batch and draw) beside the same fit unrecorded, whose
+    histories must be equal bit for bit; then ``replay_port`` of the
+    record on the card, equal bit for bit too. K3 (counted from 0 before
+    each of the three) twice per train step and once per eval batch.
+    Returns K3's launches in the replay."""
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.ops import sinkhorn_fused as sp
+    from shwd_torch.train import Trainer
+    rows = tool("registration_rows_torch")
+    cfg = rows.row_config("w_cos", REG_SEED, str(log_dir), REG_EPOCHS["replay"])
+    cfg = dataclasses.replace(cfg, experiment="replay", fused_epoch=False,
+                              dataset=dataclasses.replace(cfg.dataset, num_synthetic=REG_SHAPES))
+    root = Path(log_dir) / "replay_record"
+    ds = RegistrationDataset(cfg.dataset, "train")
+    runs, launches = {}, {}
+    for label in ("recorded", "unrecorded"):
+        trainer = Trainer(cfg)
+        recorder = None
+        if label == "recorded":
+            recorder = rows.FitRecorder(root, (0, cfg.num_epochs), start=True)
+            recorder.attach(trainer)
+        sp.sinkhorn_points.launches = 0
+        res = trainer.fit(ds, verbose=False)
+        torch.cuda.synchronize()
+        launches[label] = sp.sinkhorn_points.launches
+        runs[label] = res["history"]
+        if recorder is not None:
+            recorder.finish(res["history"], {"row": "w_cos", "seed": cfg.seed})
+    record = rows.Record(root)
+    sp.sinkhorn_points.launches = 0
+    t0 = time.perf_counter()
+    runs["replayed"], _, _ = rows.replay_port(record, dev)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches["replayed"] = sp.sinkhorn_points.launches
+    hist = runs["recorded"]
+    steps = sum(r["train_steps"] for r in hist)
+    n_val = int(cfg.dataset.num_synthetic * cfg.dataset.val_split)
+    want = 2 * steps + len(hist) * -(-n_val // cfg.batch_size)
+    emit({"phase": "replay", "row": "w_cos", "seed": cfg.seed, "epochs": len(hist),
+          "path": hist[0]["path"], "record_files": record.meta["files"],
+          "record_bytes": sum(f.stat().st_size for f in root.iterdir()),
+          "history": [{k: r[k] for k in HISTORY_KEYS} for r in hist],
+          "unrecorded_equal": history_diff(runs["unrecorded"], hist)[1],
+          "replayed_equal": history_diff(runs["replayed"], hist)[1],
+          "replay_seconds": replay_s, "k3_launches": launches, "k3_launches_expected": want})
+    check(hist[0]["path"].startswith("per_step"), f"replay: the recorded fit ran {hist[0]['path']}")
+    check(all(np.isfinite(r[k]) for r in hist for k in HISTORY_KEYS),
+          "replay: a non-finite metric in the recorded fit")
+    for label in ("unrecorded", "replayed"):
+        worst, same = history_diff(runs[label], hist)
+        check(len(runs[label]) == len(hist) and same,
+              f"replay: the {label} history is not the recorded one bit for bit "
+              f"(largest relative difference {worst})")
+    for label, n in launches.items():
+        check(n == want, f"replay: K3 launched {n} times in the {label} run, expected {want}")
+    return launches["replayed"]
+
+
 def phase_sinkhorn_div_1024(dev, log_dir):
     """The w_cos_1024_sinkhorn_div row's config (the debiased Sinkhorn
     divergence, plain PyTorch in both packages: three (128, 1024, 1024)
@@ -2190,6 +2263,7 @@ def main() -> int:
         k3["launches_learns"] = phase_registration_learns(dev, log_dir)
         k3["launches_outliers"] = timed(phase_registration_outliers, dev, log_dir)
         k3["launches_jax_init"] = timed(phase_jax_init, dev, log_dir)
+        k3["launches_replay"] = timed(phase_replay, dev, log_dir)
         phase_evaluate(dev, sink_cfg, sink_res, log_dir)
         k3["launches_data_parallel"] = phase_data_parallel(dev, log_dir, sink_cfg, sink_res)
         del sink_res

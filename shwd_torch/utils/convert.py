@@ -1,5 +1,5 @@
-"""Load phi, chart and PCRNet weights and Adam state from the JAX
-package's layout.
+"""Move phi, chart and PCRNet weights and Adam states between the port
+and the JAX package's layout, both ways.
 
 The JAX package keeps phi as ``(params, state)`` pytrees: a tuple over
 flows of a tuple over layers of ``{"w", "b", "beta"}`` (params) and
@@ -12,7 +12,11 @@ flows of a tuple over layers of ``{"w", "b", "beta"}`` (params) and
 (the ASWD mapping, the DSWD transform net) and a tuple of them (the GSW
 MLP), which the port keeps as the same trees of tensors. These helpers take those trees with NUMPY
 leaves (callers apply ``np.asarray`` to the JAX leaves), so this module
-needs no JAX.
+needs no JAX. The ``*_tree`` functions are the loaders' inverses, and
+``export_state``/``load_state`` move a whole trainer state through one
+flat ``{path: array}`` dict, the key layout of ``tools/init_states_jax.npz``
+(a path is the tree's keys and indices joined by ``/``; ``stored_tree``
+reads it back into nested trees).
 """
 
 from __future__ import annotations
@@ -248,3 +252,241 @@ def load_gsw_mlp(params, din: int = 3, dout: int = 10, num_filters: int = 32,
         raise ValueError(f"gsw mlp: {len(params)} layers, expected {len(widths) - 1}")
     return tuple(_zoo_linear(p, widths[i + 1], widths[i], f"gsw_mlp[{i}]", device)
                  for i, p in enumerate(params))
+
+
+# -- the port's state in the JAX layout ----------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy (on the CPU ``.numpy()`` would share the tensor's memory)."""
+    return np.array(t.detach().cpu().numpy(), copy=True)
+
+
+def chart_tree(chart):
+    """A ``SphereChartMLP``'s or ``EncoderFlowChart``'s params in the JAX
+    layout, as numpy copies (the inverse of ``load_chart``'s params)."""
+    dense = chart.layers if isinstance(chart, SphereChartMLP) else chart.encoder
+    layers = tuple({"w": _np(layer.w), "b": _np(layer.b)} for layer in dense)
+    if isinstance(chart, SphereChartMLP):
+        return layers
+    flow = tuple(tuple({k: _np(getattr(layer, k)) for k in ("w", "b", "beta")}
+                       for layer in block.net.layers) for block in chart.flow.flows)
+    return {"encoder": layers, "flow": flow}
+
+
+def chart_state_tree(chart):
+    """A chart's JAX state: ``{}`` for ``SphereChartMLP``, the flow's
+    spectral vectors for ``EncoderFlowChart``."""
+    if isinstance(chart, SphereChartMLP):
+        return {}
+    return {"flow": tuple(tuple({k: _np(getattr(layer, k)) for k in ("u", "v")}
+                                for layer in block.net.layers)
+                          for block in chart.flow.flows)}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return tuple(_stack(list(t)) for t in zip(*trees))
+    return np.stack(trees)
+
+
+def pseudo_phis_tree(phis: Sequence[FlowChain]):
+    """The pseudo criterion's frozen flows as the JAX package's stacked
+    ``(params, state)`` (leading ``phi_num`` axis on every leaf; the
+    inverse of ``load_pseudo_phis``)."""
+    if isinstance(phis[0].flows[0], PlanarFlow):
+        params = [tuple({k: _np(getattr(f, k)) for k in ("u", "w", "b")} for f in phi.flows)
+                  for phi in phis]
+        return _stack(params), tuple({} for _ in phis[0].flows)
+    trees = [phi_tree(phi) for phi in phis]     # np.stack copies the leaves
+    return _stack([p for p, _ in trees]), _stack([s for _, s in trees])
+
+
+def _adam_leaves(opt: torch.optim.Adam, params):
+    """(mu, nu, count) of ``params``: the optax ``ScaleByAdamState``
+    fields as lists in the parameters' order, zeros and count 0 where
+    Adam has made no state yet."""
+    counts, mu, nu = set(), [], []
+    for p in params:
+        st = opt.state.get(p)
+        if st:
+            counts.add(int(float(st["step"])))
+            mu.append(_np(st["exp_avg"]))
+            nu.append(_np(st["exp_avg_sq"]))
+        else:
+            counts.add(0)
+            mu.append(np.zeros(tuple(p.shape), np.float32))
+            nu.append(np.zeros(tuple(p.shape), np.float32))
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer's parameters sit at different steps {sorted(counts)}")
+    return mu, nu, np.asarray(counts.pop(), np.int32)
+
+
+def pcrnet_adam_tree(opt: torch.optim.Adam, model: PCRNet):
+    """(mu, nu, count) of the model optimizer in PCRNet's JAX layout (the
+    inverse of ``load_pcrnet_adam_state``)."""
+    layers = list(_pcrnet_layers(model))
+    mu, nu, count = _adam_leaves(opt, [getattr(layer, n) for layer, _, _ in layers
+                                       for n in ("w", "b")])
+
+    def tree(leaves):
+        it = iter(leaves)
+        out = {"feature": [], "head": []}
+        for _, group, _ in layers:
+            out[group].append({n: next(it) for n in ("w", "b")})
+        return {k: tuple(v) for k, v in out.items()}
+    return tree(mu), tree(nu), count
+
+
+def adam_tree(opt: torch.optim.Adam, flow: FlowChain):
+    """(mu, nu, count) of phi's optimizer in the Residual chain's params
+    layout (the inverse of ``load_adam_state``)."""
+    names = ("w", "b", "beta")
+    params = [getattr(layer, n) for layer in _layers(flow) for n in names]
+    mu, nu, count = _adam_leaves(opt, params)
+
+    def tree(leaves):
+        it = iter(leaves)
+        return tuple(tuple({n: next(it) for n in names} for _ in block.net.layers)
+                     for block in flow.flows)
+    return tree(mu), tree(nu), count
+
+
+def max_ssw_adam_tree(opt: torch.optim.Adam, chart):
+    """(mu, nu, count) of the chart's optimizer in the chart's params
+    layout (the inverse of ``load_max_ssw_adam_state``)."""
+    template = chart_tree(chart)
+    mu, nu, count = _adam_leaves(opt, [p for p, _, _ in _chart_pairs(chart, template)])
+    dense = template if isinstance(chart, SphereChartMLP) else template["encoder"]
+
+    def tree(leaves):
+        # _chart_pairs' order: each dense layer's w, b, then each flow
+        # layer's w, b, beta
+        it = iter(leaves)
+        enc = tuple({n: next(it) for n in ("w", "b")} for _ in dense)
+        if isinstance(chart, SphereChartMLP):
+            return enc
+        return {"encoder": enc,
+                "flow": tuple(tuple({n: next(it) for n in ("w", "b", "beta")} for _ in block)
+                              for block in template["flow"])}
+    return tree(mu), tree(nu), count
+
+
+def flatten_tree(tree, prefix: str) -> dict:
+    """``{prefix/path: numpy copy of the leaf}`` of a tree of dicts, tuples
+    and lists (dict keys in sorted order, as JAX flattens them); the key
+    layout of ``tests/write_init_states.py::flatten``. An empty dict or
+    tuple has no leaves."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flatten_tree(tree[k], f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}/{i}"))
+    else:
+        out[prefix] = np.array(tree)    # a copy: CPU trees share the tensors' memory
+    return out
+
+
+def stored_tree(data, prefix: str):
+    """The tree stored under ``prefix/`` in a flat ``{path: array}`` dict
+    or npz (``flatten_tree``'s layout): a node whose keys are all indices
+    is a tuple; () where nothing is stored (a chart without state)."""
+    root: dict = {}
+    keys = data.files if hasattr(data, "files") else list(data)
+    for key in keys:
+        if key.startswith(prefix + "/"):
+            *parts, leaf = key[len(prefix) + 1:].split("/")
+            node = root
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return tuple(build(node[k]) for k in sorted(node, key=int))
+        return {k: build(v) for k, v in node.items()}
+    return build(root)
+
+
+def _adam_dict(mu, nu, count) -> dict:
+    return {"count": count, "mu": mu, "nu": nu}
+
+
+def export_state(trainer, state) -> dict:
+    """A trainer state (``shwd_torch.train.TrainState``) as one flat
+    ``{path: numpy array}`` dict in the JAX layout, copies throughout:
+
+      - ``pcrnet/...``: PCRNet's params (``pcrnet_tree``);
+      - ``pcrnet_adam/{count,mu/...,nu/...}``: its Adam as optax's
+        ``ScaleByAdamState`` (count int32; zeros at count 0);
+      - ``crit/phi_params/...``, ``crit/phi_state/...``: SHWD's phi, the
+        pseudo criterion's stacked frozen flows, or max-SSW's chart;
+      - ``crit/adam/...``: phi's or the chart's Adam (SHWD, max-SSW);
+      - ``crit/lam`` (f32) and ``crit/strikes`` (int32): SHWD's scalars;
+      - ``epoch`` (int32): epochs done.
+
+    ``load_state`` reads it back; ``stored_tree`` gives any subtree."""
+    out = flatten_tree(pcrnet_tree(state.model), "pcrnet")
+    out.update(flatten_tree(_adam_dict(*pcrnet_adam_tree(state.opt, state.model)),
+                            "pcrnet_adam"))
+    crit, name = state.crit_state, trainer.cfg.criterion
+    if name in ("w_cos", "w1_cos"):
+        params, fstate = phi_tree(crit.phi)
+        out.update(flatten_tree(_adam_dict(*adam_tree(crit.opt, crit.phi)), "crit/adam"))
+        out["crit/lam"] = np.asarray(_np(crit.lam), np.float32)
+        out["crit/strikes"] = np.asarray(crit.strikes, np.int32)
+    elif name == "max_ssw":
+        params, fstate = chart_tree(crit.phi), chart_state_tree(crit.phi)
+        out.update(flatten_tree(_adam_dict(*max_ssw_adam_tree(crit.opt, crit.phi)),
+                                "crit/adam"))
+    elif name == "pseudo_w_cos":
+        params, fstate = pseudo_phis_tree(crit.phis)
+    else:
+        params, fstate = (), ()
+    out.update(flatten_tree(params, "crit/phi_params"))
+    out.update(flatten_tree(fstate, "crit/phi_state"))
+    out["epoch"] = np.asarray(state.epoch, np.int32)
+    return out
+
+
+def _load_adam(data, prefix: str, opt: torch.optim.Adam, load) -> None:
+    """Adam's state from ``prefix/{count,mu,nu}``; at count 0 none, as a
+    fresh optimizer has (its first step makes it)."""
+    count = int(data[f"{prefix}/count"])
+    if count == 0:
+        for group in opt.param_groups:
+            for p in group["params"]:
+                opt.state.pop(p, None)
+        return
+    load(stored_tree(data, f"{prefix}/mu"), stored_tree(data, f"{prefix}/nu"), count)
+
+
+def load_state(trainer, state, data):
+    """Copy an ``export_state`` dict (or its npz) into ``state`` in place;
+    returns ``state``."""
+    load_pcrnet(state.model, stored_tree(data, "pcrnet"))
+    _load_adam(data, "pcrnet_adam", state.opt, lambda mu, nu, count:
+               load_pcrnet_adam_state(state.opt, state.model, mu, nu, count))
+    crit, name = state.crit_state, trainer.cfg.criterion
+    params = stored_tree(data, "crit/phi_params")
+    fstate = stored_tree(data, "crit/phi_state")
+    if name in ("w_cos", "w1_cos"):
+        load_phi(crit.phi, params, fstate)
+        _load_adam(data, "crit/adam", crit.opt, lambda mu, nu, count:
+                   load_adam_state(crit.opt, crit.phi, mu, nu, count))
+        with torch.no_grad():
+            crit.lam.copy_(torch.from_numpy(np.asarray(data["crit/lam"], np.float32)))
+        crit.strikes = int(data["crit/strikes"])
+    elif name == "max_ssw":
+        load_chart(crit.phi, params, fstate or {})
+        _load_adam(data, "crit/adam", crit.opt, lambda mu, nu, count:
+                   load_max_ssw_adam_state(crit.opt, crit.phi, mu, nu, count))
+    elif name == "pseudo_w_cos":
+        load_pseudo_phis(crit.phis, params, fstate)
+    state.epoch = int(data["epoch"])
+    return state

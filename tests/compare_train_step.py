@@ -45,7 +45,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from shwd_torch.data import RegistrationBatch, RegistrationDataset  # noqa: E402
 from shwd_torch.train import Trainer  # noqa: E402
-from shwd_torch.utils.convert import pcrnet_tree, phi_tree  # noqa: E402
+from shwd_torch.utils.convert import (chart_tree, max_ssw_adam_tree, pcrnet_tree,  # noqa: E402
+                                      phi_tree)
 from shwd_tpu import data as jd  # noqa: E402
 from shwd_tpu import train as jt  # noqa: E402
 from shwd_tpu.ops.spherical import stiefel_frames  # noqa: E402
@@ -68,19 +69,6 @@ def rel(got, want) -> float:
     """max |got - want| / max |want| over the leaves of two trees."""
     g, w = _flat(got, want)
     return float(np.max(np.abs(g - w)) / max(np.max(np.abs(w)), 1e-30))
-
-
-def chart_tree(chart):
-    """A ``SphereChartMLP``'s parameters in the JAX layout."""
-    return tuple({"w": layer.w.detach().numpy().copy(), "b": layer.b.detach().numpy().copy()}
-                 for layer in chart.layers)
-
-
-def adam_moments(opt, params, key: str):
-    """An Adam's ``exp_avg``/``exp_avg_sq`` of ``params`` (a chart) in the
-    JAX layout."""
-    return tuple({n: opt.state[getattr(layer, n)][key].numpy().copy() for n in ("w", "b")}
-                 for layer in params.layers)
 
 
 def frames_of(cfg, key):
@@ -137,8 +125,8 @@ def main() -> int:
             st["step"] = st["step"].cpu()
         count = int(next(iter(crit.opt.state.values()))["step"])
         adam, *rest = jstate.crit_state.opt_state
-        mu, nu = (jax.tree_util.tree_map(jnp.asarray, adam_moments(crit.opt, crit.phi, k))
-                  for k in ("exp_avg", "exp_avg_sq"))
+        mu, nu = (jax.tree_util.tree_map(jnp.asarray, m)
+                  for m in max_ssw_adam_tree(crit.opt, crit.phi)[:2])
         adam = adam._replace(count=jnp.asarray(count, jnp.int32), mu=mu, nu=nu)
         jstate = jstate._replace(
             params=jax.tree_util.tree_map(jnp.asarray, pcrnet_tree(tstate.model)),
@@ -196,8 +184,9 @@ def main() -> int:
         out["chart_after"] = rel(chart_tree(tc.phi), jax.tree_util.tree_map(np.asarray,
                                                                           jc.phi_params))
         adam = jc.opt_state[0]
-        out["chart_adam_mu"] = rel(adam_moments(tc.opt, tc.phi, "exp_avg"), adam.mu)
-        out["chart_adam_nu"] = rel(adam_moments(tc.opt, tc.phi, "exp_avg_sq"), adam.nu)
+        mu, nu, _ = max_ssw_adam_tree(tc.opt, tc.phi)
+        out["chart_adam_mu"] = rel(mu, adam.mu)
+        out["chart_adam_nu"] = rel(nu, adam.nu)
     elif cfg.criterion == "w_cos":
         out["phi_after"] = rel(phi_tree(tc.phi)[0], jax.tree_util.tree_map(np.asarray,
                                                                           jc.phi_params))

@@ -5,6 +5,7 @@ fixed draws (poses, noise and outliers made with numpy and handed to both
 sides), and the random parts are checked for their ranges."""
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import jax
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ virtual mesh. Shapes and seeds are those of ``tests/test_dist_sort.py``.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import jax
 import jax.numpy as jnp

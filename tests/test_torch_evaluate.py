@@ -5,6 +5,7 @@ through a checkpoint, and a resumed run against an uninterrupted one.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 

@@ -11,6 +11,7 @@ N=32, two pose iterations, one flow layer; PCRNet at its full widths.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 

@@ -3,6 +3,7 @@ package's: the same suggestions from the same seed, one jsonl format that
 either package resumes, and the registration objective on the CPU."""
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 import math

@@ -5,6 +5,7 @@ to end on the CPU at a tiny size. ~10 s on one worker.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 import importlib.util

@@ -8,6 +8,7 @@ imports JAX, hence ``--noconftest``):
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import json
 import subprocess

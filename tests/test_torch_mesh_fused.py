@@ -19,6 +19,7 @@ One spawn, about 15 s on one worker.
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
 
 import dataclasses
+import shutil
 
 import pytest
 import torch
@@ -46,6 +47,7 @@ def both_paths(tmp_path_factory):
             cfg, dataset=dataclasses.replace(cfg.dataset, num_synthetic=50,
                                              val_split=0.5)).to_json())
     out = torch_dist.spawn(torch_dist.fit_both_paths, 2, tmp, cfgs)
+    shutil.rmtree(tmp)  # the fits' snapshots: ~430 MB
     return {case: [r[i] for r in out] for i, case in enumerate(CASES)}
 
 

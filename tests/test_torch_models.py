@@ -8,6 +8,7 @@ import torch_cpu  # noqa: F401  (first: one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from shwd_torch.models import PCRNet, PointNet, max_pool
@@ -140,3 +141,89 @@ def test_converted_adam_state_steps_like_optax():
     for a, b in zip(jax.tree_util.tree_leaves(_np(want)),
                     jax.tree_util.tree_leaves(got)):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7)
+
+
+LAW_SEEDS = range(16)
+LAW_P = 1e-3
+
+
+def _pcrnet_law(side: str) -> list:
+    """Every weight and bias of PCRNet over 16 seeds divided by its bound
+    1/sqrt(fan_in) (U(-1, 1) if the law holds), 2000 entries a layer and
+    seed at fixed positions."""
+    pick = np.random.default_rng(0)
+    out = []
+    for seed in LAW_SEEDS:
+        if side == "jax":
+            tree = _np(jm.PCRNet().init(jax.random.PRNGKey(seed)))
+        else:
+            tree = pcrnet_tree(PCRNet(generator=torch.Generator().manual_seed(seed)))
+        for group in ("feature", "head"):
+            for layer in tree[group]:
+                bound = 1.0 / np.sqrt(layer["w"].shape[1])
+                for leaf in (layer["w"], layer["b"]):
+                    flat = leaf.ravel()
+                    idx = pick.choice(flat.size, min(flat.size, 2000), replace=False)
+                    out.append(flat[idx] / bound)
+    return [np.concatenate(out)]
+
+
+def _phi_shift_law(side: str) -> list:
+    """phi(x) - x of the SHWD criterion's initial Residual phi (3 layers)
+    on one fixed numpy cloud, per seed: its mean over the cloud (3
+    components; the last layers' biases, shared by every point, so the
+    points are not independent draws) and the log RMS of the rest."""
+    from shwd_torch.flows import make_flow as t_make_flow
+    from shwd_tpu.flows import make_flow as j_make_flow
+    x = np.random.default_rng(7).uniform(-1, 1, size=(64, 3)).astype(np.float32)
+    flow = j_make_flow("Residual", 3)
+    j_shift = jax.jit(lambda key: flow(*flow.init(key), jnp.asarray(x)))
+    means, spreads = [], []
+    for seed in LAW_SEEDS:
+        if side == "jax":
+            y = np.asarray(j_shift(jax.random.PRNGKey(seed)))
+        else:
+            phi = t_make_flow("Residual", 3, generator=torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                y = phi(torch.from_numpy(x)).numpy()
+        shift = (y - x).astype(np.float64)
+        means.append(shift.mean(axis=0))
+        spreads.append(np.log(np.sqrt(np.mean((shift - shift.mean(axis=0)) ** 2))))
+    return [np.concatenate(means), np.asarray(spreads)]
+
+
+def _pose_law(side: str) -> list:
+    """(rotation angle in rad, translation's x) of 256 Euler-uniform poses
+    a seed over 16 seeds; the translation's norm must be 1 on both sides."""
+    from shwd_torch.data import transforms as t_transforms
+    from shwd_tpu.data import transforms as j_transforms
+    cfg = t_transforms.TransformConfig()
+    out = []
+    for seed in LAW_SEEDS:
+        if side == "jax":
+            pose = np.asarray(j_transforms.random_pose_7d(
+                jax.random.PRNGKey(seed), 256, j_transforms.TransformConfig()))
+        else:
+            pose = t_transforms.random_pose_7d(torch.Generator().manual_seed(seed), 256,
+                                               cfg).numpy()
+        np.testing.assert_allclose(np.linalg.norm(pose[:, 4:], axis=-1), 1.0, rtol=1e-6)
+        out.append(np.stack([2 * np.arccos(np.clip(np.abs(pose[:, 0]), 0, 1)), pose[:, 4]]))
+    return list(np.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("what", ["pcrnet", "phi_shift", "pose"])
+def test_initial_draws_follow_one_law_in_both_packages(what):
+    """The two packages' starts differ in stream only, not in law: a
+    two-sample Kolmogorov-Smirnov test of each package's draws against
+    the other's, pooled over 16 seeds, at p > 1e-3 (a true shared law
+    fails it once in a thousand). PCRNet's weights over their bound (2000
+    a layer and seed), the initial phi's shift (its per-seed mean and
+    spread), the pose's angle and translation (256 a seed). ~25 s for
+    PCRNet (drawn 16 times a side), a few s for the others."""
+    from scipy.stats import ks_2samp
+    law = {"pcrnet": _pcrnet_law, "phi_shift": _phi_shift_law, "pose": _pose_law}[what]
+    port, ref = law("torch"), law("jax")
+    for a, b in zip(port, ref, strict=True):
+        assert a.shape == b.shape
+        assert np.std(b) > 0, f"{what}: the JAX draws are constant"
+        assert ks_2samp(a, b).pvalue > LAW_P, f"{what}: KS p = {ks_2samp(a, b).pvalue}"

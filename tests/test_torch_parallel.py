@@ -10,6 +10,7 @@ converted to numpy. About 50 s on one worker.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import jax
 import jax.numpy as jnp

@@ -4,6 +4,7 @@ package, the H100 peak table, the FLOP counter and the copied FLOP
 models. A few seconds on one worker."""
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import json
 import math

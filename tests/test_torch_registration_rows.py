@@ -11,6 +11,7 @@ at a tiny size and resumes from its snapshot.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 import importlib.util

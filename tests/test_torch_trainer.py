@@ -8,6 +8,7 @@ full widths on B=4 clouds of 32 points.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
 import functools

@@ -11,6 +11,7 @@ splits and handed to the port.
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import jax
 import jax.numpy as jnp

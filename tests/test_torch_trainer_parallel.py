@@ -12,8 +12,10 @@ and the JAX step's compile (30 s).
 """
 
 import torch_cpu  # noqa: F401  (first: one intra-op thread)
+from torch_cpu import tmp_path  # noqa: F401  (removed once its test passes)
 
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -111,7 +113,8 @@ def criteria_fits(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("criteria")
     cfgs = [_criterion_cfg(tmp, case).to_json() for case in CRITERIA]
     out = torch_dist.spawn(torch_dist.fits, 2, tmp, cfgs, 2, 1)
-    return tmp, {case: [r[i] for r in out] for i, case in enumerate(CRITERIA)}
+    yield tmp, {case: [r[i] for r in out] for i, case in enumerate(CRITERIA)}
+    shutil.rmtree(tmp)  # the fits' snapshots: ~1 GB
 
 
 @pytest.mark.parametrize("case", list(CRITERIA))

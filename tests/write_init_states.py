@@ -1,6 +1,7 @@
 """Write tools/init_states_jax.npz: the states the JAX package's registration
 rows start from at seed 1234, for the port's row harness (which runs no
-JAX).
+JAX); or, with ``--seeds``/``--rows``/``--out``, the same for other seeds
+and rows into files of their own.
 
 ``shwd_tpu.train.Trainer.fit`` draws its state as
 ``Trainer(cfg).init_state(jax.random.split(jax.random.PRNGKey(seed))[0])``;
@@ -32,10 +33,17 @@ on the CPU; ``tests/test_torch_init_states.py`` redraws the states and
 holds the file to them bit for bit.
 
     python tests/write_init_states.py
+    python tests/write_init_states.py --seeds 0 1 2 --rows robust_noise_0.04 \
+        w_cos_1024_ssw --out log/init_states/jax_s{seed}.npz --no-kernel-values
+
+A seed's file is ~17 MB (PCRNet's 4.22 M f32 do not compress): keep files
+beyond the committed one under a git-ignored directory (``log/``). The row
+harness reads one with ``--init jax --init-file FILE``.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import importlib.util
@@ -71,9 +79,9 @@ harness = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(harness)
 
 
-def jax_config(row: str):
-    """The JAX ``TrainConfig`` of ``row`` at ``SEED``."""
-    return config_from_dict(json.loads(harness.row_config(row, SEED).to_json()))
+def jax_config(row: str, seed: int = SEED):
+    """The JAX ``TrainConfig`` of ``row`` at ``seed``."""
+    return config_from_dict(json.loads(harness.row_config(row, seed).to_json()))
 
 
 def init_keys(seed: int):
@@ -150,7 +158,7 @@ def criterion_value(trainer, crit, source, target) -> np.ndarray:
     return np.asarray(val)
 
 
-def draw_states() -> tuple[dict, list, list, dict]:
+def draw_states(seed: int = SEED, rows=ROWS) -> tuple[dict, list, list, dict]:
     """(the state keys of the file, each row's entry, for each row the
     (cfg, trainer, criterion state) of the first row with its criterion
     config, PCRNet's JAX tree). PCRNet is drawn once, through
@@ -158,10 +166,10 @@ def draw_states() -> tuple[dict, list, list, dict]:
     state once per distinct criterion config, from ``init_state``'s
     criterion key. Rows whose states are equal leaf for leaf share one
     entry."""
-    k_init, _, k_crit = init_keys(SEED)
+    k_init, _, k_crit = init_keys(seed)
     out, entries, groups, row_state, row_group = {}, {}, {}, [], []
-    for row in ROWS:
-        cfg = jax_config(row)
+    for row in rows:
+        cfg = jax_config(row, seed)
         sig = crit_signature(cfg)
         if sig not in groups:
             trainer = jt.Trainer(cfg)
@@ -191,7 +199,7 @@ def draw_states() -> tuple[dict, list, list, dict]:
     return out, row_state, row_group, params
 
 
-def draw_checks(row_group: list, params, kernel_values: bool = True) -> dict:
+def draw_checks(row_group: list, params, kernel_values: bool = True, rows=ROWS) -> dict:
     """The check batch, PCRNet's pose on it and each criterion's value
     (and frames), with each row's check name; ``kernel_values`` False
     leaves out the interpret-mode values (the slow part)."""
@@ -202,7 +210,7 @@ def draw_checks(row_group: list, params, kernel_values: bool = True) -> dict:
     out = {"check/source": source, "check/target": target,
            "check/est_R": np.asarray(pose.est_R), "check/est_t": np.asarray(pose.est_t)}
     names, row_check = {}, []
-    for row, (cfg, trainer, crit) in zip(ROWS, row_group):
+    for row, (cfg, trainer, crit) in zip(rows, row_group):
         if id(crit) not in names:
             names[id(crit)] = name = row
             frames = eval_frames(cfg, crit)
@@ -218,14 +226,32 @@ def draw_checks(row_group: list, params, kernel_values: bool = True) -> dict:
     return out
 
 
-def draw() -> dict:
+def draw(seed: int = SEED, rows=ROWS, kernel_values: bool = True) -> dict:
     """Every key of the file."""
-    states, row_state, row_group, params = draw_states()
-    return {"seed": np.asarray(SEED), "rows": np.asarray(ROWS),
+    states, row_state, row_group, params = draw_states(seed, rows)
+    return {"seed": np.asarray(seed), "rows": np.asarray(rows),
             "row_state": np.asarray(row_state), **states,
-            **draw_checks(row_group, params)}
+            **draw_checks(row_group, params, kernel_values, rows)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seeds", type=int, nargs="+", default=[SEED])
+    ap.add_argument("--rows", nargs="+", choices=list(harness.ROWS), default=list(ROWS))
+    ap.add_argument("--out", default=str(OUT),
+                    help="the file; {seed} in it is replaced by each seed")
+    ap.add_argument("--no-kernel-values", action="store_true",
+                    help="leave out the fused kernel's interpret-mode check values")
+    args = ap.parse_args(argv)
+    if len(args.seeds) > 1 and "{seed}" not in args.out:
+        ap.error("--out needs {seed} for more than one seed")
+    for seed in args.seeds:
+        out = Path(args.out.format(seed=seed))
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(out, **draw(seed, tuple(args.rows), not args.no_kernel_values))
+        print(f"wrote {out} ({out.stat().st_size} bytes)")
+    return 0
 
 
 if __name__ == "__main__":
-    np.savez_compressed(OUT, **draw())
-    print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
+    sys.exit(main())

@@ -58,9 +58,36 @@ and the fit loads it through ``cfg.load_model``.
     python3 tools/registration_rows_torch.py --rows w_cos --seeds 1234 --init jax
     python3 tools/registration_rows_torch.py --rows w_cos_128_hybrid --resume 2500
 
+``--init-file`` names another file of that layout (``python
+tests/write_init_states.py --seeds 0 1 2 --out log/init_states/jax_s{seed}.npz``
+writes one per seed, git-ignored).
+
 ``--epochs`` cuts a row's length for a short run. A snapshot takes ~50 MB
 and a run keeps 3-4: keep ``--log-dir`` out of any directory whose size is
 limited.
+
+A fit can be recorded (``FitRecorder``) into ``--record-dir``, one
+directory per (row, seed, init), for a replay in both packages
+(``tests/replay_fit.py``) or in the port alone (``replay_port``):
+
+  - ``--record-start``: the state the fit's first step sees (after
+    ``load_model`` or a resume), ``state_<E>.npz`` in ``export_state``'s
+    layout;
+  - ``--record-state-at E``: the full state at the start of epoch E;
+  - ``--record-epochs A:B``: every batch of epochs A <= e < B, train and
+    val, as the dataset made it (the bank rows' indices, the transformed
+    source, the pose), and every draw the criterion made in them (SSW
+    frames, max-SSW subsets), ``draws.npz``;
+  - always ``history.json`` (the fit's per-epoch history) and
+    ``meta.json``.
+
+Recording draws or states runs the per-step path (``fused_epoch=False``,
+bit for bit the fused one on the card); a record of the history alone
+keeps the row's path. A record at B=128, N=M=128 takes ~3 MB an epoch, a
+state ~17 MB with Adam at zero and ~51 MB with its moments.
+
+    python3 tools/registration_rows_torch.py --rows robust_noise_0.04 --seeds 1 \
+        --epochs 10 --record-dir log/replay --record-start --record-epochs 0:10
 """
 
 from __future__ import annotations
@@ -81,6 +108,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+# the reader of tools/init_states_jax.npz and of recorded states
+from shwd_torch.utils.convert import stored_tree  # noqa: E402
 
 # the HPO winner's knobs, as the JAX scripts spell them
 LAM = 1.3111961119405346e-05
@@ -183,40 +213,19 @@ def row_config(row: str, seed: int | None = None, log_dir: str = "log",
         **extra, **common)
 
 
-def stored_tree(data, prefix: str):
-    """The JAX tree stored under ``prefix/`` in an npz of
-    ``tests/write_init_states.py`` (keys and indices joined by ``/``): a
-    node whose keys are all indices is a tuple; () where nothing is
-    stored (a chart without state)."""
-    root: dict = {}
-    for key in data.files:
-        if key.startswith(prefix + "/"):
-            *parts, leaf = key[len(prefix) + 1:].split("/")
-            node = root
-            for part in parts:
-                node = node.setdefault(part, {})
-            node[leaf] = data[key]
-
-    def build(node):
-        if not isinstance(node, dict):
-            return node
-        if all(k.isdigit() for k in node):
-            return tuple(build(node[k]) for k in sorted(node, key=int))
-        return {k: build(v) for k, v in node.items()}
-    return build(root)
-
-
-def jax_init_state(trainer, row: str, seed: int):
+def jax_init_state(trainer, row: str, seed: int, init_file=None):
     """The state the JAX package's fit of ``row`` at ``seed`` starts from,
     on ``trainer``'s device: a fresh state of ``trainer.init_state`` (the
     criterion's generator seeded with ``seed``, as ``Trainer.fit`` seeds
     it) with PCRNet, the criterion's flows or chart and lam read from
-    ``INIT_FILE``; both Adam states are fresh (zero at count 0)."""
+    ``init_file`` (default ``INIT_FILE``); both Adam states are fresh
+    (zero at count 0)."""
     from shwd_torch.utils.convert import load_chart, load_pcrnet, load_phi, load_pseudo_phis
-    data = np.load(INIT_FILE)
+    path = Path(init_file or INIT_FILE)
+    data = np.load(path)
     names = [str(r) for r in data["rows"]]
     if row not in names or seed != int(data["seed"]):
-        raise ValueError(f"{INIT_FILE.name} holds no JAX initial state of row {row!r} at "
+        raise ValueError(f"{path.name} holds no JAX initial state of row {row!r} at "
                          f"seed {seed} (rows {names} at seed {int(data['seed'])}; "
                          "python tests/write_init_states.py writes it)")
     state = trainer.init_state(torch.Generator(device=trainer.device).manual_seed(seed))
@@ -236,14 +245,14 @@ def jax_init_state(trainer, row: str, seed: int):
     return state
 
 
-def jax_init_config(cfg, row: str, device=None):
+def jax_init_config(cfg, row: str, device=None, init_file=None):
     """``cfg`` fitted from the JAX package's initial state of ``row``: the
     state written as a port checkpoint at epoch 0,
     ``<log_dir>/<experiment>/models/jax_init``, which the returned
     config's ``load_model`` names."""
     from shwd_torch.train import Trainer
     from shwd_torch.utils.checkpoint import save_checkpoint
-    state = jax_init_state(Trainer(cfg, device=device), row, cfg.seed)
+    state = jax_init_state(Trainer(cfg, device=device), row, cfg.seed, init_file)
     path = Path(cfg.log_dir) / cfg.experiment / "models" / "jax_init"
     save_checkpoint(path, state, 0)
     return dataclasses.replace(cfg, load_model=str(path))
@@ -295,6 +304,309 @@ def resume_config(cfg, total: int):
     epochs, as ``benchmarks/resume_hybrid.py`` continues its row."""
     snap = Path(cfg.log_dir) / cfg.experiment / "models" / "best_rot_error_snap"
     return dataclasses.replace(cfg, num_epochs=total, load_model=str(snap))
+
+
+# -- recording a fit, and replaying it in the port -----------------------------
+
+DRAWS = "draws.npz"
+
+
+def criterion_object(trainer):
+    """The criterion object behind ``trainer.crit_apply`` (None for the
+    stateless ``cd`` and ``sinkhorn`` criteria)."""
+    return getattr(trainer.crit_apply, "__self__", None)
+
+
+def _draw_site(trainer) -> str | None:
+    """Where the trainer's criterion draws: "transport" (SHWD on ``ssw``),
+    "max_ssw", or None (no draw). Raises for a criterion whose draws a
+    record cannot hold."""
+    from shwd_torch.losses import MaxSSWLoss, SHWDLoss
+    cfg, crit = trainer.cfg, criterion_object(trainer)
+    if isinstance(crit, MaxSSWLoss):
+        return "max_ssw"
+    ssw = cfg.shwd.transport.solver == "ssw"
+    if isinstance(crit, SHWDLoss):
+        if cfg.shwd.refresh:
+            raise NotImplementedError("a record cannot hold refresh's new phi every call")
+        return "transport" if ssw else None
+    if crit is not None and ssw:
+        raise NotImplementedError(f"a record cannot hold {cfg.criterion}'s ssw frames")
+    return None
+
+
+def _wrap_draws(trainer, sink) -> None:
+    """Make the criterion's draws go through ``sink``: ``sink(draw)``
+    gets (frames, indices or None) as drawn and returns what the step
+    uses. The draws are the criterion's own, made as it makes them."""
+    from shwd_torch.ops.spherical import stiefel_frames
+    crit, site = criterion_object(trainer), _draw_site(trainer)
+    if site == "transport":
+        inner, n = crit.transport, trainer.cfg.shwd.transport.num_projections
+
+        def transport(x, y, generator=None, frames=None):
+            if frames is None:
+                if generator is None:       # as the transport does without one
+                    generator = torch.Generator(device=x.device).manual_seed(0)
+                frames = stiefel_frames(generator, n, x.shape[-1], device=x.device)
+            return inner(x, y, frames=sink((frames, None))[0])
+        crit.transport = transport
+    elif site == "max_ssw":
+        draw = crit._draw
+        crit._draw = lambda state, x, minibatch: sink(draw(state, x, minibatch))
+
+
+class FitRecorder:
+    """Records a port fit into ``root`` (see the module docstring):
+    ``states`` the epochs at whose start the state is written (``start``
+    adds the fit's first), ``epochs`` (A, B) the epochs whose batches and
+    criterion draws are kept. ``attach(trainer)`` before ``fit``,
+    ``finish(history, meta)`` after it (``meta.json`` gets ``meta``, the
+    fit's config, path and device, and what was written)."""
+
+    def __init__(self, root, epochs=None, states=(), start=False):
+        self.root = Path(root)
+        self.epochs, self.states, self.start = epochs, set(states), start
+        self.arrays: dict = {}
+        self.current = None         # the key of the batch being stepped
+        self.written: list = []
+        self.first_epoch = None
+
+    @property
+    def per_step(self) -> bool:
+        """Whether the fit must run the per-step path (draws or states)."""
+        return bool(self.epochs or self.states or self.start)
+
+    def _recording(self, epoch: int) -> bool:
+        return self.epochs is not None and self.epochs[0] <= epoch < self.epochs[1]
+
+    def _sink(self, draw):
+        if self.current is not None:
+            j = self.drawn
+            frames, idx = draw
+            self.arrays[f"{self.current}/draw/{j}/frames"] = frames.detach().cpu().numpy()
+            if idx is not None:
+                self.arrays[f"{self.current}/draw/{j}/index"] = idx.cpu().numpy()
+            self.drawn += 1
+        return draw
+
+    def _save_state(self, trainer, state) -> None:
+        from shwd_torch.utils.convert import export_state
+        self.root.mkdir(parents=True, exist_ok=True)
+        path = self.root / f"state_{state.epoch}.npz"
+        np.savez_compressed(path, **export_state(trainer, state))
+        self.written.append(path.name)
+
+    def _batches(self, dataset, epoch: int, phase: str):
+        recorder = self
+
+        class Recording:
+            """``dataset`` whose batches are kept as they are made."""
+
+            def __len__(self):
+                return len(dataset)
+
+            def batches(self, generator, indices, batch_size, shuffle=True, rng=None,
+                        drop_remainder=True):
+                # the order the dataset makes: its shuffle replayed on a copy
+                # of the rng's state
+                idx = np.array(indices)
+                if shuffle:
+                    probe = np.random.default_rng()
+                    probe.bit_generator.state = rng.bit_generator.state
+                    probe.shuffle(idx)
+                made = dataset.batches(generator, indices, batch_size, shuffle, rng,
+                                       drop_remainder)
+                for k, batch in enumerate(made):
+                    sel = idx[k * batch_size:(k + 1) * batch_size]
+                    if not torch.equal(batch.target, dataset.targets[
+                            torch.as_tensor(sel, device=dataset.targets.device)]):
+                        raise RuntimeError(f"epoch {epoch} {phase} batch {k}: the target "
+                                           "is not the bank's rows")
+                    key = f"e{epoch}/{phase}/{k}"
+                    recorder.arrays[f"{key}/index"] = sel.astype(np.int32)
+                    for name in ("source", "igt_rotation", "igt_translation"):
+                        recorder.arrays[f"{key}/{name}"] = getattr(batch, name).cpu().numpy()
+                    recorder.current, recorder.drawn = key, 0
+                    yield batch
+                recorder.current = None
+        return Recording()
+
+    def attach(self, trainer) -> None:
+        if self.per_step and trainer.execution_path() == "fused":
+            raise ValueError("recording draws or states needs fused_epoch=False")
+        if trainer.cfg.criterion in ("w_cos", "w1_cos") and trainer._early_stop_enabled:
+            raise NotImplementedError("a replay does not count early-stop strikes")
+        self.trainer = trainer
+        train, evaluate = trainer.train_one_epoch, trainer.eval_one_epoch
+        _wrap_draws(trainer, self._sink)
+
+        def train_one_epoch(state, dataset, indices, generator, rng):
+            if self.first_epoch is None:
+                self.first_epoch = state.epoch
+                if self.start:
+                    self._save_state(trainer, state)
+            if state.epoch in self.states and f"state_{state.epoch}.npz" not in self.written:
+                self._save_state(trainer, state)
+            if self._recording(state.epoch):
+                dataset = self._batches(dataset, state.epoch, "train")
+            return train(state, dataset, indices, generator, rng)
+
+        def eval_one_epoch(state, dataset, indices, generator):
+            epoch = state.epoch
+            if self._recording(epoch):
+                dataset = self._batches(dataset, epoch, "val")
+            out = evaluate(state, dataset, indices, generator)
+            if self._recording(epoch) and epoch == self.epochs[1] - 1:
+                self._write_draws()
+            return out
+
+        trainer.train_one_epoch, trainer.eval_one_epoch = train_one_epoch, eval_one_epoch
+
+    def _write_draws(self) -> None:
+        self.root.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(self.root / DRAWS, **self.arrays)
+        self.written.append(DRAWS)
+        self.arrays = {}
+
+    def finish(self, history: list, meta: dict) -> None:
+        if self.arrays:                 # the fit ended inside the range
+            self._write_draws()
+        self.root.mkdir(parents=True, exist_ok=True)
+        (self.root / "history.json").write_text(json.dumps(history, indent=1) + "\n")
+        meta = dict(meta, config=json.loads(self.trainer.cfg.to_json()),
+                    path=self.trainer.execution_path(), device=str(self.trainer.device),
+                    first_epoch=self.first_epoch,
+                    epochs=list(self.epochs) if self.epochs else None,
+                    states=sorted(int(f[len("state_"):-len(".npz")])
+                                  for f in self.written if f.startswith("state_")),
+                    files=sorted(set(self.written)) + ["history.json", "meta.json"])
+        (self.root / "meta.json").write_text(json.dumps(meta, indent=1) + "\n")
+
+
+class Record:
+    """A recorded fit, read back: ``meta``, ``history``, ``state(E)`` and
+    the batches and draws of its recorded epochs."""
+
+    def __init__(self, root):
+        self.root = Path(root)
+        self.meta = json.loads((self.root / "meta.json").read_text())
+        self.history = json.loads((self.root / "history.json").read_text())
+        self.draws = np.load(self.root / DRAWS) if (self.root / DRAWS).exists() else None
+        self._keys = set(self.draws.files) if self.draws is not None else set()
+
+    def config(self, **overrides):
+        """The fit's ``TrainConfig`` (the port's), with ``overrides``."""
+        from shwd_torch.train.config import config_from_dict
+        return dataclasses.replace(config_from_dict(self.meta["config"]), **overrides)
+
+    def state(self, epoch: int):
+        return np.load(self.root / f"state_{epoch}.npz")
+
+    def batch_keys(self, epoch: int, phase: str) -> list:
+        keys, k = [], 0
+        while f"e{epoch}/{phase}/{k}/index" in self._keys:
+            keys.append(f"e{epoch}/{phase}/{k}")
+            k += 1
+        if not keys:
+            raise KeyError(f"the record holds no {phase} batch of epoch {epoch}")
+        return keys
+
+    def batch(self, key: str) -> dict:
+        """index, source, igt_rotation, igt_translation as numpy."""
+        return {k: self.draws[f"{key}/{k}"]
+                for k in ("index", "source", "igt_rotation", "igt_translation")}
+
+    def batch_draws(self, key: str) -> list:
+        """[(frames, indices or None), ...] in the order the step drew them."""
+        out, j = [], 0
+        while f"{key}/draw/{j}/frames" in self._keys:
+            idx = f"{key}/draw/{j}/index"
+            out.append((self.draws[f"{key}/draw/{j}/frames"],
+                        self.draws[idx] if idx in self._keys else None))
+            j += 1
+        return out
+
+
+class Replayed:
+    """The recorded batches of one epoch and phase, as a dataset the
+    port's epoch loop takes (its arguments are ignored: the record fixes
+    the order); each batch's recorded draws are queued in ``queue`` for
+    the criterion's hooks (``hand_in``)."""
+
+    def __init__(self, record: Record, epoch: int, phase: str, targets, queue: list):
+        self.record, self.keys = record, record.batch_keys(epoch, phase)
+        self.targets, self.queue = targets, queue
+
+    def batches(self, *args, **kwargs):
+        from shwd_torch.data import RegistrationBatch
+        dev = self.targets.device
+        for key in self.keys:
+            b = self.record.batch(key)
+            if self.queue:
+                raise RuntimeError(f"{len(self.queue)} recorded draws were not used")
+            self.queue[:] = [tuple(None if a is None else torch.from_numpy(a).to(dev)
+                                   for a in d) for d in self.record.batch_draws(key)]
+            sel = torch.as_tensor(b["index"].astype(np.int64), device=dev)
+            yield RegistrationBatch(self.targets[sel], *(
+                torch.from_numpy(b[k]).to(dev)
+                for k in ("source", "igt_rotation", "igt_translation")))
+        if self.queue:
+            raise RuntimeError(f"{len(self.queue)} recorded draws were not used")
+
+
+def hand_in(trainer, queue: list) -> None:
+    """The criterion of ``trainer`` takes its draws from ``queue`` (filled
+    per batch by ``Replayed``) in the order it makes them."""
+    def sink(_drawn):
+        if not queue:
+            raise RuntimeError("the step drew more than the record holds")
+        return queue.pop(0)
+    _wrap_draws(trainer, sink)
+
+
+def replay_port(record: Record, device=None, epochs=None, on_step=None):
+    """The port's per-step fit of the record's config from its state at
+    the start of ``epochs[0]`` (default: the earliest stored) through
+    ``epochs[1]`` (default: the end of the recorded range), each batch and
+    draw handed in from the record. ``on_step(state, k, batch, draws,
+    step)`` takes train step k of ``state.epoch`` in place of the trainer
+    and must return ``step(state, batch)``; ``draws`` are the step's
+    recorded draws. Returns (history rows with the fit's keys, the
+    trainer, the final state)."""
+    from shwd_torch.data import RegistrationDataset
+    from shwd_torch.train import Trainer
+    from shwd_torch.utils.convert import load_state
+    cfg = record.config(fused_epoch=False, load_model=None)
+    trainer = Trainer(cfg, device=device)
+    start = epochs[0] if epochs else min(record.meta["states"])
+    stop = epochs[1] if epochs else record.meta["epochs"][1]
+    state = trainer.init_state(torch.Generator(device=trainer.device).manual_seed(cfg.seed))
+    load_state(trainer, state, record.state(start))
+    targets = RegistrationDataset(cfg.dataset, "train", device=trainer.device).targets
+    queue: list = []
+    hand_in(trainer, queue)
+    count = {"k": 0}
+    if on_step is not None:
+        step = trainer._train_step
+
+        def train_step(st, batch):
+            count["k"] += 1
+            return on_step(st, count["k"] - 1, batch, list(queue), step)
+        trainer._train_step = train_step
+    history = []
+    for epoch in range(start, stop):
+        state.epoch, count["k"] = epoch, 0
+        t0 = time.perf_counter()
+        _, train_loss = trainer.train_one_epoch(
+            state, Replayed(record, epoch, "train", targets, queue), None, None, None)
+        val_loss, rot, trans = trainer.eval_one_epoch(
+            state, Replayed(record, epoch, "val", targets, queue), None, None)
+        state.epoch = epoch + 1
+        history.append(dict(epoch=epoch + 1, train_loss=train_loss, val_loss=val_loss,
+                            rot_error=rot, trans_error=trans,
+                            seconds=time.perf_counter() - t0))
+    return history, trainer, state
 
 
 def snapshot_name(row: str) -> str:
@@ -349,15 +661,19 @@ def jax_row(row: str) -> dict:
     return out
 
 
-def fit_and_evaluate(cfg, row: str, device, resume: bool = False) -> dict:
+def fit_and_evaluate(cfg, row: str, device, resume: bool = False,
+                     recorder: FitRecorder | None = None, meta: dict | None = None) -> dict:
     """``Trainer.fit`` then ``evaluate`` on the test split at the row's
     snapshot: the JAX rows' keys, times, peak memory and the final lam.
     The fit's initial state is evaluated first: its own draw, or the
-    checkpoint ``cfg.load_model`` names; a ``resume`` evaluates none."""
+    checkpoint ``cfg.load_model`` names; a ``resume`` evaluates none.
+    ``recorder`` records the fit (``meta`` goes into its ``meta.json``)."""
     from shwd_torch.data import RegistrationDataset
     from shwd_torch.train import Trainer
     from shwd_torch.train.evaluate import evaluate
     trainer = Trainer(cfg, device=device)
+    if recorder is not None:
+        recorder.attach(trainer)
     dev = trainer.device
     ds = RegistrationDataset(cfg.dataset, "train", device=dev)
     init_ev = None
@@ -374,6 +690,8 @@ def fit_and_evaluate(cfg, row: str, device, resume: bool = False) -> dict:
     res = trainer.fit(ds, verbose=False)
     total = time.perf_counter() - t0
     h = res["history"]
+    if recorder is not None:
+        recorder.finish(h, meta or {})
     bad = [r["epoch"] for r in h if not all(math.isfinite(r[k]) for k in METRICS)]
     snap = Path(cfg.log_dir) / cfg.experiment / "models" / snapshot_name(row)
     ev = evaluate(cfg, checkpoint=str(snap), split="test", device=dev)
@@ -436,15 +754,26 @@ def run(row: str, seed: int, args) -> dict:
             "allocated_before_bytes": (torch.cuda.memory_allocated()
                                        if args.device is None else None)}
     bar = {"best_rot_error": ROWS[row][3], "test_mean_rot_error": ROWS[row][4]}
+    recorder = None
+    if args.record_dir is not None:
+        recorder = FitRecorder(Path(args.record_dir) / f"{row}_s{seed}{tag}",
+                               args.record_epochs, args.record_state_at, args.record_start)
+        if recorder.per_step:
+            cfg = dataclasses.replace(cfg, fused_epoch=False)
+    meta = {k: head[k] for k in ("row", "seed", "init", "card", "commit",
+                                 "source_sha256_16", "torch")}
     if args.resume is None:
         if args.init == "jax":
-            cfg = jax_init_config(cfg, row, args.device)
+            init_file = args.init_file and args.init_file.format(seed=seed)
+            cfg = jax_init_config(cfg, row, args.device, init_file)
         out = {**head, "epochs": cfg.num_epochs, "row_epochs": ROWS[row][0],
                "nan_guard": cfg.nan_guard, "bar": bar,
-               **fit_and_evaluate(cfg, row, args.device), "jax_row": jax_row(row)}
+               **fit_and_evaluate(cfg, row, args.device, recorder=recorder, meta=meta),
+               "jax_row": jax_row(row)}
         return judge(out)
     cfg = resume_config(cfg, args.resume)
-    part = fit_and_evaluate(cfg, row, args.device, resume=True)
+    part = fit_and_evaluate(cfg, row, args.device, resume=True, recorder=recorder,
+                            meta=dict(meta, resumed_to_epoch=args.resume))
     part.update(card=head["card"], source_sha256_16=head["source_sha256_16"],
                 resumed_from_epoch=part["first_epoch"] - 1, resumed_to_epoch=args.resume,
                 bar=bar)
@@ -499,6 +828,14 @@ def summary(row: dict) -> dict:
     return out
 
 
+def epoch_range(text: str) -> tuple:
+    """"A:B" -> (A, B), 0 <= A < B."""
+    a, b = (int(x) for x in text.split(":"))
+    if not 0 <= a < b:
+        raise argparse.ArgumentTypeError(f"{text!r} is not an epoch range A:B with A < B")
+    return a, b
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", nargs="+", choices=list(ROWS), default=["w_cos"])
@@ -511,6 +848,17 @@ def main(argv=None) -> int:
     ap.add_argument("--init", choices=("torch", "jax"), default="torch",
                     help="start from the port's draw at the seed, or from the JAX "
                          "package's (tools/init_states_jax.npz)")
+    ap.add_argument("--init-file", default=None,
+                    help="the JAX initial states of --init jax ({seed} is replaced "
+                         "by the seed; default tools/init_states_jax.npz)")
+    ap.add_argument("--record-dir", default=None,
+                    help="record each fit into <dir>/<row>_s<seed>[_jax]")
+    ap.add_argument("--record-start", action="store_true",
+                    help="record the state the fit's first step sees")
+    ap.add_argument("--record-epochs", type=epoch_range, default=None, metavar="A:B",
+                    help="record the batches and criterion draws of epochs A <= e < B")
+    ap.add_argument("--record-state-at", type=int, nargs="+", default=(), metavar="E",
+                    help="record the state at the start of epoch E")
     ap.add_argument("--device", choices=("cpu",), default=None,
                     help="the card unless cpu (for tests)")
     ap.add_argument("--log-dir", default="log/registration_rows")
@@ -518,6 +866,9 @@ def main(argv=None) -> int:
     ap.add_argument("--commit", default=None,
                     help="the commit the tree was taken from, recorded as given")
     args = ap.parse_args(argv)
+    if args.record_dir is None and (args.record_start or args.record_epochs
+                                    or args.record_state_at):
+        ap.error("--record-start, --record-epochs and --record-state-at need --record-dir")
     failed = False
     for row in args.rows:
         for seed in args.seeds or [ROWS[row][1]]:
