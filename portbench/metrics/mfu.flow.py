@@ -1,0 +1,13 @@
+"""mfu.flow: model FLOPs done in the window (``portbench.yardstick``)
+over the window's seconds, as a percentage of the H100's float32 peak
+(67 TFLOP/s: the port computes in f32 with TF32 off)."""
+
+from portbench.yardstick import F32_FLOPS_PER_S
+
+COUNT = "flow_iterations"
+
+
+def read(run):
+    if not run.counts.get(COUNT):
+        return None
+    return 100.0 * run.model_flops / run.window_s / F32_FLOPS_PER_S
