@@ -1,0 +1,10 @@
+"""backward_ms.train: device ms per replay of the captured train step spent in
+the model's gradient, ``torch.autograd.grad`` (mark ``backward``): the last
+replay's time at each collect in the untraced window, weighted by the
+replays it covers (``portbench.program_records``)."""
+
+from portbench.program_records import mark_ms
+
+
+def read(run):
+    return mark_ms(run, "train step", ('backward',))

@@ -1,0 +1,9 @@
+"""k1_ms.flow: device ms per replay of the captured flow step spent in K1's
+launch (mark ``k1``): the last replay's time at each collect in the untraced
+window, weighted by the replays it covers (``portbench.program_records``)."""
+
+from portbench.program_records import mark_ms
+
+
+def read(run):
+    return mark_ms(run, "flow step", ('k1',))

@@ -1,0 +1,10 @@
+"""phi_forward_ms.train: device ms per replay of the captured train step spent
+in phi's passes over both clouds, both calls (mark ``phi_forward``): the
+last replay's time at each collect in the untraced window, weighted by the
+replays it covers (``portbench.program_records``)."""
+
+from portbench.program_records import mark_ms
+
+
+def read(run):
+    return mark_ms(run, "train step", ('phi_forward',))

@@ -1,0 +1,11 @@
+"""phi_update_ms.flow: device ms per replay of the captured flow step spent in
+phi's inner update: the objective's backward, Adam and the power iteration
+(mark ``phi_update``): the last replay's time at each collect in the
+untraced window, weighted by the replays it covers
+(``portbench.program_records``)."""
+
+from portbench.program_records import mark_ms
+
+
+def read(run):
+    return mark_ms(run, "flow step", ('phi_update',))

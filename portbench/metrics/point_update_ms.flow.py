@@ -1,0 +1,10 @@
+"""point_update_ms.flow: device ms per replay of the captured flow step spent
+in the points' backward and Adam step (marks ``backward`` and ``adam``): the
+last replay's time at each collect in the untraced window, weighted by the
+replays it covers (``portbench.program_records``)."""
+
+from portbench.program_records import mark_ms
+
+
+def read(run):
+    return mark_ms(run, "flow step", ('backward', 'adam'))

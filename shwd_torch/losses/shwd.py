@@ -18,7 +18,10 @@ the device (phi, its Adam state with the step count, lam), so the call can
 be recorded into a CUDA graph and replayed (``utils.graphs``). The strike
 count stays on the host: it moves only between epochs, and it decides
 whether a call runs the inner steps at all (``inner_gate``), so a graph is
-captured per value of that gate.
+captured per value of that gate. Inside a captured step, phi's passes
+(``phi_forward``) and its inner update (``phi_update``: the objective's
+backward, Adam and the power iteration) are device marks
+(``utils.profiling.device_span``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops.auction import hybrid_assignment_warm
 from ..ops.costs import cost_matrix
 from ..parallel.mesh import reduce_gradients
 from ..utils.optim import torch_adam
+from ..utils.profiling import device_span
 from .transport import TransportConfig, make_transport, reduce_batch
 
 
@@ -145,7 +149,8 @@ class SHWDLoss:
         """One phi pass over both clouds (concatenated along the point
         axis); phi is per-point, so the split is exact."""
         n = x.shape[-2]
-        s = phi(torch.cat([x, y], dim=-2))
+        with device_span("phi_forward"):
+            s = phi(torch.cat([x, y], dim=-2))
         return s[..., :n, :], s[..., n:, :]
 
     def _inner_objective(self, phi, x, y, lam, warm, generator):
@@ -167,13 +172,14 @@ class SHWDLoss:
             state.opt.zero_grad(set_to_none=True)
             obj, warm = self._inner_objective(state.phi, xd, yd, state.lam, warm,
                                               state.generator)
-            obj.backward()
-            # a data-parallel fit: the batch mean's gradient is the ranks'
-            # mean, or phi drifts apart across ranks
-            reduce_gradients(state.phi.parameters(), "mean")
-            state.opt.step()
-            if cfg.power_iter_per_step > 0:
-                state.phi.update_state(cfg.power_iter_per_step)
+            with device_span("phi_update"):
+                obj.backward()
+                # a data-parallel fit: the batch mean's gradient is the
+                # ranks' mean, or phi drifts apart across ranks
+                reduce_gradients(state.phi.parameters(), "mean")
+                state.opt.step()
+                if cfg.power_iter_per_step > 0:
+                    state.phi.update_state(cfg.power_iter_per_step)
         return warm
 
     # -- public ------------------------------------------------------------

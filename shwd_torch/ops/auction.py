@@ -22,6 +22,7 @@ import torch
 
 from .. import _kernels
 from ..parallel.mesh import group_max, group_min
+from ..utils.profiling import device_span
 from .sinkhorn import emd2_approx
 from .sinkhorn_kernels import emd2_warmup, warmup_supported
 
@@ -216,7 +217,7 @@ def _auction_launch(cost, eps_final, scale_factor, max_sweeps, prices0, eps0,
         cluster = _pick_cluster(b, sms, lambda: _device_fits16(dev, n))
     elif cluster not in _CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {_CLUSTER_SIZES}, got {cluster}")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), device_span("k2"):
         rc = _lib().shwd_auction(
             cost.data_ptr(), prices0.data_ptr(), eps0.data_ptr(),
             None if assign0 is None else assign0.data_ptr(),
@@ -299,6 +300,12 @@ def _hybrid_eps0(cost: torch.Tensor, eps_final: float) -> torch.Tensor:
     # (under a data-parallel fit, over every rank's block of the batch)
     c_range = torch.clamp_min(group_max(cost.max()) - group_min(cost.min()), 1e-12)
     return torch.clamp_min(c_range * 1e-4, eps_final * 10.0)
+
+
+# public names for callers outside the module (the benchmark's kernel
+# probes); the private names stay while portbench reads them
+sinkhorn_warm_prices = _sinkhorn_warm_prices
+hybrid_eps0 = _hybrid_eps0
 
 
 def _hybrid_assignment(cost, eps_final, sink_eps=1e-5, sink_iters=100,

@@ -18,6 +18,7 @@ import math
 import torch
 
 from .. import _kernels
+from ..utils.profiling import device_span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -155,7 +156,7 @@ def emd2_warmup(cost: torch.Tensor, eps: float = 1e-5, num_iters: int = 40,
     # per-block partials: a (max, sum) pair per column, one number per item;
     # and g with its iteration mark
     scratch = torch.empty(2 * b * m * (slots + 1) + b * slots, **f32)
-    with torch.cuda.device(cost.device):
+    with torch.cuda.device(cost.device), device_span("k1"):
         rc = _lib().shwd_emd2_warmup(
             cost.data_ptr(), val.data_ptr(), f.data_ptr(), g.data_ptr(),
             log_e0.data_ptr(), scratch.data_ptr(), b, n, m, log_et, log_a,

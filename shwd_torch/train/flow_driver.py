@@ -22,6 +22,16 @@ functional Adam of ``sliced_zoo.adversarial_maximize`` and write their
 learned net back into the state's own tensors. Only SHWD on the host
 ``exact`` solver runs op by op; ``flow_path`` says which path a config
 takes.
+
+Spans (``utils.profiling``): ``flow.run`` around the call, and inside it
+``flow.build`` (the method's state, phi's construction included, the
+points and their optimiser), ``flow.capture`` (the warm-up step, its
+seconds as ``warmup_s``, and the capture), one ``flow.interval`` per timed
+interval (``interval_seconds`` reads them) and ``flow.eval`` (the host
+copy and ``eval_fn``, at the start and after each interval). Inside the
+captured step the points' backward and Adam step are the device marks
+``backward`` and ``adam``; the graph's marks are collected after each
+interval's sync.
 """
 
 from __future__ import annotations
@@ -46,9 +56,10 @@ from ..ops.chamfer import chamfer, chamfer_tiled
 from ..ops.costs import cost_matrix
 from ..ops.sinkhorn import emd2_approx
 from ..ops.spherical import sliced_wasserstein_sphere
+from ..utils import profiling
+from ..utils.flops import flow_step_flops
 from ..utils.graphs import StepGraph, step_generators
 from ..utils.optim import init_adam_state, torch_adam
-from ..utils.profiling import counted_flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +100,9 @@ class FlowResult:
     eval_iters: np.ndarray
     interval_seconds: np.ndarray   # wall time per reporting interval
     steps_per_second: float
-    # matmul-class FLOPs of one step, counted on the warm-up step
-    # (utils.profiling.counted_flops; the kernels add 0)
+    # SHWD: one step's FLOPs by the analytic model at the run's points,
+    # solver and depth (utils.flops.flow_step_flops); NaN for the methods
+    # it does not model
     flops_per_step: float = float("nan")
     # 'fused' or 'per_step: <reason>' (flow_path), and the step graph's
     # StepGraph.stats() on the fused path
@@ -148,8 +160,10 @@ def _descend(points, state, loss) -> torch.Tensor:
     """One Adam step of the coordinates on ``loss``; no gradient reaches
     any learned net."""
     state["opt"].zero_grad(set_to_none=True)
-    loss.backward(inputs=[points])
-    state["opt"].step()
+    with profiling.device_span("backward"):
+        loss.backward(inputs=[points])
+    with profiling.device_span("adam"):
+        state["opt"].step()
     if state.get("sched") is not None:
         state["sched"].step()
     return loss.detach()
@@ -274,11 +288,27 @@ def _make_loss_step(cfg: FlowConfig, device: torch.device):
     return init_state, step
 
 
+def step_flops(cfg: FlowConfig, n_points: int) -> float:
+    """One SHWD step's FLOPs by ``utils.flops.flow_step_flops`` at
+    ``n_points``, the solver's dual iterations and the inner steps; NaN
+    for the other methods."""
+    if cfg.method != "SHWD":
+        return float("nan")
+    hybrid = cfg.shwd_solver == "hybrid"
+    return flow_step_flops(
+        n_points, layers=cfg.shwd_layers, solver=cfg.shwd_solver,
+        max_iter=cfg.shwd_max_iter,
+        sink_iters=cfg.hybrid_warmup_iters if hybrid else cfg.shwd_num_iters,
+        sink_scales=cfg.hybrid_warmup_scales if hybrid else cfg.shwd_num_scales,
+        num_projections=cfg.num_projections)
+
+
 def _warm_up(cfg: FlowConfig, step, state, points, target, dev) -> float:
     """Build and load the path's kernels, then run one step on copies of
     the points, the method's state and the point optimiser, restoring the
     generator afterwards: the run's trajectory is the one it would be
-    without this. Returns the step's matmul-class FLOPs."""
+    without this. Returns its seconds."""
+    t0 = time.perf_counter()
     if dev.type == "cuda":
         names = path_kernels(cfg)
         _kernels.build_all(names)
@@ -291,16 +321,16 @@ def _warm_up(cfg: FlowConfig, step, state, points, target, dev) -> float:
     w_state = copy.deepcopy({k: v for k, v in state.items() if k not in ("opt", "sched")},
                             {id(gen): gen})
     w_state["opt"], w_state["sched"] = _make_point_opt(cfg, w_points)
-    flops = counted_flops(step, w_points, target, w_state)
+    step(w_points, target, w_state)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     gen.set_state(saved)
-    return flops
+    return time.perf_counter() - t0
 
 
 def _step_graph(cfg, step, state, points, target, dev):
     """The flow step as a ``StepGraph`` (no static inputs: the points and
-    the state are updated in place) and the warm-up step's FLOPs. The
+    the state are updated in place) and the warm-up step's seconds. The
     captured step leaves the schedule to the caller. On the card the
     warm-up is ``_warm_up`` on the capture's stream, and the graph is
     captured here, before any timed interval."""
@@ -308,13 +338,13 @@ def _step_graph(cfg, step, state, points, target, dev):
         if opt is not None and dev.type == "cuda":
             init_adam_state(opt)
     unscheduled = {**state, "sched": None}
-    flops = []
+    seconds = []
 
     def fn():
         return step(points, target, unscheduled)
 
     def warmup():
-        flops.append(_warm_up(cfg, step, state, points, target, dev))
+        seconds.append(_warm_up(cfg, step, state, points, target, dev))
 
     name = f"flow step of {cfg.method}" + (f"/{cfg.shwd_solver}" if cfg.method == "SHWD"
                                            else "")
@@ -324,7 +354,7 @@ def _step_graph(cfg, step, state, points, target, dev):
         graph.capture()
     else:
         warmup()
-    return graph, flops[0]
+    return graph, seconds[0]
 
 
 def run_flow(source, target, cfg: FlowConfig,
@@ -341,7 +371,12 @@ def run_flow(source, target, cfg: FlowConfig,
     the Chamfer distance on the device. The metric needs no gradient, so it
     is the forward-only tiled Chamfer (the CUDA kernel on the card).
     """
-    dev = resolve_device(device)
+    with profiling.span("flow.run", method=cfg.method):
+        return _run_flow(source, target, cfg, eval_fn, verbose,
+                         resolve_device(device), fused)
+
+
+def _run_flow(source, target, cfg, eval_fn, verbose, dev, fused) -> FlowResult:
     if eval_fn is None:
         if cfg.eval_metric == "cd":
             def eval_fn(p, t):
@@ -354,14 +389,6 @@ def run_flow(source, target, cfg: FlowConfig,
         else:
             raise ValueError(f"unknown eval metric {cfg.eval_metric!r}")
 
-    init_state, step = _make_loss_step(cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    state = init_state(gen)
-    points = torch.as_tensor(np.asarray(source), dtype=torch.float32,
-                             device=dev).clone().requires_grad_(True)
-    tgt = torch.as_tensor(np.asarray(target), dtype=torch.float32, device=dev)
-    state["opt"], state["sched"] = _make_point_opt(cfg, points)
-
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -369,29 +396,44 @@ def run_flow(source, target, cfg: FlowConfig,
     def host(t):
         return t.detach().cpu().numpy()
 
-    target_np = host(tgt)
-    evals = [eval_fn(host(points), target_np)]
+    with profiling.span("flow.build"):
+        init_state, step = _make_loss_step(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        state = init_state(gen)
+        points = torch.as_tensor(np.asarray(source), dtype=torch.float32,
+                                 device=dev).clone().requires_grad_(True)
+        tgt = torch.as_tensor(np.asarray(target), dtype=torch.float32, device=dev)
+        state["opt"], state["sched"] = _make_point_opt(cfg, points)
+        target_np = host(tgt)
+    with profiling.span("flow.eval"):
+        evals = [eval_fn(host(points), target_np)]
     iters = [0]
     times = []
     path = flow_path(cfg, fused)
     graph = None
-    if path == "fused":
-        graph, flops_step = _step_graph(cfg, step, state, points, tgt, dev)
-    else:
-        flops_step = _warm_up(cfg, step, state, points, tgt, dev)
+    # the warm-up step and, on the fused path, the capture
+    with profiling.span("flow.capture") as capture:
+        if path == "fused":
+            graph, warmup_s = _step_graph(cfg, step, state, points, tgt, dev)
+        else:
+            warmup_s = _warm_up(cfg, step, state, points, tgt, dev)
+        capture.attrs["warmup_s"] = warmup_s
     for it in range(cfg.num_iterations // cfg.eval_interval):
         sync()
-        t0 = time.perf_counter()
-        for _ in range(cfg.eval_interval):
-            if graph is None:
-                step(points, tgt, state)
-                continue
-            graph()
-            if state["sched"] is not None:
-                state["sched"].step()
-        sync()
-        times.append(time.perf_counter() - t0)
-        metric = eval_fn(host(points), target_np)
+        with profiling.span("flow.interval") as interval:
+            for _ in range(cfg.eval_interval):
+                if graph is None:
+                    step(points, tgt, state)
+                    continue
+                graph()
+                if state["sched"] is not None:
+                    state["sched"].step()
+            sync()
+        times.append(interval.seconds)
+        if graph is not None:
+            graph.collect()
+        with profiling.span("flow.eval"):
+            metric = eval_fn(host(points), target_np)
         evals.append(metric)
         iters.append((it + 1) * cfg.eval_interval)
         if verbose:
@@ -406,7 +448,7 @@ def run_flow(source, target, cfg: FlowConfig,
         interval_seconds=times_arr,
         steps_per_second=cfg.eval_interval / max(float(times_arr.mean()), 1e-12)
         if len(times) else float("nan"),
-        flops_per_step=flops_step,
+        flops_per_step=step_flops(cfg, points.shape[0]),
         path=path,
         graph=None if graph is None else graph.stats(),
     )

@@ -44,7 +44,13 @@ How the port differs from the JAX package's functional trainer:
   group, the gradient bucket's all-reduce) into the graph; the warm-up
   runs each of them once first, so NCCL's communicators exist before the
   capture. The epoch's loss and the validation sums are reduced over the
-  group outside the graphs, once per pass, as on the per-step path.
+  group outside the graphs, once per pass, as on the per-step path;
+- the fused train pass is the span ``train.pass`` (``utils.profiling``),
+  with its steps and the host seconds spent drawing batches and calling the
+  graph; the validation pass is ``train.eval_pass``. Inside the captured
+  steps PCRNet's forward, the model's backward and its Adam step are the
+  device marks ``pcrnet_forward``, ``backward`` and ``adam``; the graphs'
+  marks are collected after each pass's host read.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from ..losses.shwd import inner_gate
 from ..models import PCRNet
 from ..ops.quaternion import rotation_error_deg, translation_error
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_payload
 from ..utils.graphs import StepGraph, preserved, step_generators
 from ..utils.logging import RunLogger
@@ -206,24 +213,28 @@ class Trainer:
         """PCRNet forward, the criterion (with phi's inner ascent step) and
         the model's Adam step, in place. Returns the detached loss."""
         source, target, _ = _mean_subtract(batch)
-        out = state.model(target, source, self.cfg.pcr_iteration_num)
+        with profiling.device_span("pcrnet_forward"):
+            out = state.model(target, source, self.cfg.pcr_iteration_num)
         (loss, _, _), state.crit_state = self.crit_apply(
             state.crit_state, target, out.transformed_source, True)
         params = list(state.model.parameters())
         # the PCRNet parameters only: phi is a constant of this forward
-        grads = torch.autograd.grad(loss, params)
+        with profiling.device_span("backward"):
+            grads = torch.autograd.grad(loss, params)
         for p, g in zip(params, grads):
             p.grad = g
         # the mean (or sum) over the active data group; nothing without one
         pmesh.reduce_gradients(params, self._reduce)
-        state.opt.step()
+        with profiling.device_span("adam"):
+            state.opt.step()
         return loss.detach()
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: RegistrationBatch):
         """Validation pass of one batch: loss in test mode + pose errors."""
         source, target, translation = _mean_subtract(batch)
-        out = state.model(target, source, self.cfg.pcr_iteration_num)
+        with profiling.device_span("pcrnet_forward"):
+            out = state.model(target, source, self.cfg.pcr_iteration_num)
         (loss, _, _), _ = self.crit_apply(
             state.crit_state, target, out.transformed_source, False)
         rot_err = rotation_error_deg(batch.igt_rotation, out.est_R)
@@ -286,12 +297,28 @@ class Trainer:
             loss_sum.add_(self._train_step(state, RegistrationBatch(*inputs)))
 
         count = 0
-        for batch in dataset.batches(generator, indices, self.cfg.batch_size,
-                                     shuffle=True, rng=rng):
-            rows = self._rows(batch)
-            self._step_graph(state, ("train", gate), step, rows)(*rows)
-            count += 1
-        return state, float(pmesh.reduce_values(loss_sum, self._reduce)) / max(count, 1)
+        batch_s = launch_s = 0.0
+        with profiling.span("train.pass") as rec:
+            # host seconds from asking the iterator for a batch to holding
+            # this rank's rows, and inside the graph's call (the copies into
+            # its static inputs and the replay); the first capture counts
+            # in neither
+            clock = time.perf_counter()
+            for batch in dataset.batches(generator, indices, self.cfg.batch_size,
+                                         shuffle=True, rng=rng):
+                rows = self._rows(batch)
+                batch_s += time.perf_counter() - clock
+                graph = self._step_graph(state, ("train", gate), step, rows)
+                graph.capture()
+                launch = time.perf_counter()
+                graph(*rows)
+                clock = time.perf_counter()
+                launch_s += clock - launch
+                count += 1
+            loss = float(pmesh.reduce_values(loss_sum, self._reduce)) / max(count, 1)
+            self._collect()
+            rec.attrs.update(steps=count, batch_s=batch_s, launch_s=launch_s)
+        return state, loss
 
     # -- epochs ----------------------------------------------------------------
 
@@ -335,8 +362,13 @@ class Trainer:
         not is computed whole on every rank (the JAX package's replicated
         fallback). On the fused path each batch shape has its captured eval
         step (the whole batch's captured with no data group active), adding
-        into static device vectors.
+        into static device vectors. The pass is the span
+        ``train.eval_pass``.
         """
+        with profiling.span("train.eval_pass"):
+            return self._eval_pass(state, dataset, indices, generator)
+
+    def _eval_pass(self, state, dataset, indices, generator):
         fused = self.execution_path() == "fused"
         if fused:
             acc = self._graphs_for(state)
@@ -370,7 +402,20 @@ class Trainer:
                 split[0] *= self._n_data
             sums = sums + split
         loss, rot, trans = (sums / n_items).tolist()
+        if fused:
+            self._collect()
         return loss, rot, trans
+
+    def _collect(self) -> None:
+        """The device marks of every graph replayed since its last collect
+        (``StepGraph.collect``); call after a host sync."""
+        for graph in self._fused.get("graphs", {}).values():
+            graph.collect()
+
+    def graph_stats(self) -> list[dict]:
+        """``StepGraph.stats()`` of each step graph of the state being
+        fitted (the train step per gate, the eval step per batch shape)."""
+        return [g.stats() for g in self._fused.get("graphs", {}).values()]
 
     # -- full run ----------------------------------------------------------------
 
@@ -493,7 +538,7 @@ class Trainer:
         finally:
             group_scope.__exit__(None, None, None)
             # the graphs and their memory pools go with the fit
-            graph_stats = [g.stats() for g in self._fused.get("graphs", {}).values()]
+            graph_stats = self.graph_stats()
             self._fused = {}
             flush_snaps()
             if logger is not None:

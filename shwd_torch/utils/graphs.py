@@ -16,6 +16,10 @@ one replay per step. ``StepGraph`` holds:
 - ``replay()`` per call, adding each kernel wrapper's nodes to its launch
   count and the step's collectives to ``parallel.mesh.collective_calls``
   (a replay calls no Python wrapper);
+- device marks (``utils.profiling.device_span``): the capture records the
+  step's marks, and the whole step as ``graph``, as timing-event nodes;
+  ``collect()``, called after a host sync, notes the last replay's
+  milliseconds by label in the profiling store;
 - on the CPU, a direct call of the same function on the same static
   buffers: the same path without capture.
 
@@ -35,6 +39,7 @@ import torch
 from torch import nn
 
 from ..parallel import mesh as pmesh
+from . import profiling
 
 _KERNEL_NODE = 0          # CUgraphNodeType: CU_GRAPH_NODE_TYPE_KERNEL
 # one side stream per device for every warm-up and capture: cuBLAS gets a
@@ -172,6 +177,9 @@ class StepGraph:
         self.nodes_by_kernel: dict[str, int] = {}
         self.collectives = 0
         self.capture_seconds = 0.0
+        self._launches: list = []          # (kernel wrapper, its nodes)
+        self._marks: profiling.DeviceMarks | None = None
+        self._collected = 0                # replays at the last collect
 
     @property
     def captured(self) -> bool:
@@ -182,6 +190,10 @@ class StepGraph:
         nothing on the CPU or once captured."""
         if self.device.type != "cuda" or self.graph is not None:
             return
+        with profiling.span("graph.capture", graph=self.name):
+            self._capture()
+
+    def _capture(self) -> None:
         t0 = time.perf_counter()
         dev = self.device
         stream = capture_stream(dev)
@@ -200,8 +212,10 @@ class StepGraph:
         wrappers = kernel_wrappers()
         before = {k: w.launches for k, w in wrappers.items()}
         collectives = pmesh.collective_calls
+        marks = profiling.DeviceMarks(stream)
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with (torch.cuda.graph(graph, stream=stream), profiling.capturing(marks),
+                  profiling.device_span("graph")):
                 outputs = self.fn(*self.inputs)
         except Exception as err:
             raise RuntimeError(f"capturing step {self.name!r} as a CUDA graph "
@@ -215,11 +229,13 @@ class StepGraph:
             self.collectives = pmesh.collective_calls - collectives
             pmesh.collective_calls = collectives
         self.nodes_by_kernel = {k: v for k, v in self.nodes_by_kernel.items() if v}
+        self._launches = [(wrappers[k], n) for k, n in self.nodes_by_kernel.items()]
         kinds = graph_node_types(graph)
         self.kernel_nodes = None if kinds is None else kinds.count(_KERNEL_NODE)
         if hasattr(graph, "instantiate"):
             graph.instantiate()
         self.graph, self.outputs = graph, outputs
+        self._marks = marks if marks.spans else None
         self.capture_seconds = time.perf_counter() - t0
 
     def __call__(self, *values: torch.Tensor):
@@ -231,12 +247,26 @@ class StepGraph:
         self.capture()
         self.graph.replay()
         self.replays += 1
-        if self.nodes_by_kernel:
-            wrappers = kernel_wrappers()
-            for k, n in self.nodes_by_kernel.items():
-                wrappers[k].launches += n
+        for wrapper, n in self._launches:
+            wrapper.launches += n
         pmesh.collective_calls += self.collectives
         return self.outputs
+
+    def collect(self) -> dict | None:
+        """Call after a host sync that follows the replays: notes in the
+        profiling store (``graph.collect``) the graph's name, the replays
+        since the last collect and the last replay's device milliseconds,
+        the whole step's (``graph_ms``) and each mark's (``ms``), and
+        returns that record's attributes. None on the CPU, before a
+        replay and when nothing was replayed since the last collect."""
+        fresh = self.replays - self._collected
+        if self._marks is None or fresh <= 0:
+            return None
+        self._collected = self.replays
+        ms = self._marks.elapsed_ms()
+        graph_ms = ms.pop("graph")
+        return profiling.note("graph.collect", graph=self.name, replays=fresh,
+                              graph_ms=graph_ms, ms=ms).attrs
 
     def stats(self) -> dict:
         """Name, replays (calls on the CPU), the graph's kernel nodes, each

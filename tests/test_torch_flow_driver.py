@@ -151,20 +151,23 @@ def test_run_flow_warm_up_leaves_the_trajectory_as_it_was(method):
     assert float(np.abs(res.clouds - src).max()) > 0.01
 
 
-def test_flops_per_step_is_counted_on_the_warm_up_step():
-    """flops_per_step: finite and positive for SHWD (phi's products, with
-    their backward), equal to counting one step by hand."""
-    from shwd_torch.utils.profiling import counted_flops
+def test_flops_per_step_is_the_analytic_model():
+    """flops_per_step: the analytic model of ``utils.flops`` at the run's
+    points, solver, dual iterations and depth (hybrid and sinkhorn); NaN
+    for a method the model does not cover."""
+    from shwd_torch.utils.flops import flow_step_flops
     src, tgt = _clouds(32, seed=4)
     cfg = tf.FlowConfig(**{**CFG, "num_iterations": 2, "eval_interval": 2,
                            "shwd_layers": 2})
     res = tf.run_flow(src, tgt, cfg, device="cpu")
-    assert np.isfinite(res.flops_per_step) and res.flops_per_step > 0
-    init_state, step = tf._make_loss_step(cfg, torch.device("cpu"))
-    state = init_state(torch.Generator().manual_seed(cfg.seed))
-    points = torch.from_numpy(src.copy()).requires_grad_(True)
-    state["opt"], state["sched"] = tf._make_point_opt(cfg, points)
-    assert counted_flops(step, points, torch.from_numpy(tgt), state) == res.flops_per_step
+    assert res.flops_per_step == flow_step_flops(
+        32, layers=2, solver="hybrid", max_iter=1, sink_iters=cfg.hybrid_warmup_iters,
+        sink_scales=cfg.hybrid_warmup_scales, num_projections=cfg.num_projections) > 0
+    sink = dataclasses.replace(cfg, shwd_solver="sinkhorn")
+    assert tf.step_flops(sink, 1200) == flow_step_flops(
+        1200, layers=2, solver="sinkhorn", sink_iters=sink.shwd_num_iters,
+        sink_scales=sink.shwd_num_scales)
+    assert np.isnan(tf.step_flops(dataclasses.replace(cfg, method="SWD"), 32))
 
 
 def test_path_kernels():

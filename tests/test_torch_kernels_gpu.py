@@ -841,6 +841,65 @@ def test_step_graph_replays_the_eager_draws(cuda):
 
 
 @pytest.mark.gpu
+def test_step_graph_marks_time_the_step(cuda):
+    """A step captured with device marks around a product, K3 (its own
+    mark ``k3``) and a sum, between two unmarked adds: after five replays
+    and a sync, ``collect`` notes each label's positive ms, less than the
+    whole step's in sum (the adds are outside every mark); K3's
+    mark reads within 25 % of K3 timed alone between CUDA events at the
+    same shapes; the product's end and K3's start share one event (no work
+    was captured between them); a second collect without replays notes
+    nothing."""
+    from shwd_torch.utils import profiling
+    from shwd_torch.utils.graphs import StepGraph
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(128, 128, 3, generator=gen, device=cuda)
+    y = torch.randn(128, 128, 3, generator=gen, device=cuda)
+    w = torch.eye(3, device=cuda) + 0.01 * torch.randn(3, 3, generator=gen, device=cuda)
+    total = torch.zeros((), device=cuda)
+    pad = torch.zeros(1 << 20, device=cuda)
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+
+    def step():
+        pad.add_(1.0)
+        with profiling.device_span("product"):
+            moved = x @ w
+        val = tp.sinkhorn_points(moved, y, "lp", 2.0, **kw)
+        with profiling.device_span("sum"):
+            total.add_(val.sum())
+        pad.add_(1.0)
+
+    # the eager warm-up loads K3's library before the capture
+    graph = StepGraph("marks", step, (), device=cuda, warmup=step)
+    for _ in range(5):
+        graph()
+    torch.cuda.synchronize()
+    got = graph.collect()
+    assert got["graph"] == "marks" and got["replays"] == 5
+    assert set(got["ms"]) == {"product", "k3", "sum"}
+    assert all(ms > 0 for ms in got["ms"].values())
+    assert sum(got["ms"].values()) < got["graph_ms"]
+    spans = graph._marks.spans
+    assert [s[0] for s in spans] == ["product", "k3", "sum", "graph"]
+    assert spans[1][1] is spans[0][2]
+    moved = (x @ w).contiguous()
+    for _ in range(2):
+        tp.fused_forward(moved, y, "lp", 2.0, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        tp.fused_forward(moved, y, "lp", 2.0, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    alone = start.elapsed_time(end) / 20
+    assert abs(got["ms"]["k3"] - alone) <= 0.25 * alone, (got, alone)
+    assert graph.collect() is None
+    assert profiling.records()[-1].attrs == got
+
+
+@pytest.mark.gpu
 def test_captured_flow_step_matches_the_per_step_loop(cuda):
     """The Flow_cube SHWD/hybrid step (1200 points, K1 once and K2 twice a
     step) captured and replayed 10 times gives the per-step loop's points
