@@ -22,8 +22,12 @@ Phases, each printing one JSON line:
      its general route at 3x100x130 in every cost kind; the general route
      timed beside the register route), the tiled Chamfer (K4: the flow's
      eval metric, 1x1200x1200, with the launch floor of its one
-     cooperative launch); K1, K3 and K4 must give the same
-     bits on two calls;
+     cooperative launch), phi's residual-chain kernels (the forward, the
+     backward to x and to the parameters with their reduction, 1 and 200
+     power-iteration rounds, against the module path at the flow's 2400
+     points through 5 blocks and the train steps' 32768 and 8192 through
+     3, with the forward's launch floor and the module path's eager ms);
+     K1, K3, K4 and phi's kernels must give the same bits on two calls;
   4. slice 1: the Flow_cube SHWD gradient flow through
      shwd_torch.train.flow_driver.run_flow (1200 points, 5 Residual
      layers, hybrid exact-EMD solver, 400 iterations), fused: one step
@@ -222,6 +226,16 @@ LEARN_TRANS = 0.02                # last-quarter mean validation translation err
 JAX_INIT_POSE_TOL = dict(rtol=1e-4, atol=1e-5)
 JAX_INIT_VALUE_TOL = dict(rtol=1e-4, atol=0.0)
 JAX_INIT_EPOCHS = 2
+# phi's residual-chain kernels in an SHWD step graph: the inner pass forward,
+# its backward with the parameters' partials and their reduction, the power
+# iteration; the final pass forward and its dL/dx
+PHI_NODES = {"residual_chain_forward": 2, "residual_chain_backward": 2,
+             "residual_chain_grad_reduce": 1, "residual_chain_power_iteration": 1}
+# phi at the cells' shapes: the flow's 2 x 1200 points through 5 blocks, the
+# train steps' pass over both clouds of 128 and 32 items of 128 points
+# through 3
+PHI_SHAPES = {"flow_2400x3_5_blocks": (2400, 5), "train_b128_32768x3_3_blocks": (32768, 3),
+              "train_b32_8192x3_3_blocks": (8192, 3)}
 
 
 def emit(obj) -> None:
@@ -756,6 +770,138 @@ def check_chamfer(dev):
             "large": timing["ragged_2x5000x4099"]}
 
 
+def phi_counts(points: int, blocks: int) -> dict:
+    """(f32 operations, transcendentals) of each of phi's passes over
+    ``points``. A layer of in -> out widths: the swish (4 operations and an
+    exp an input), the product and bias (2 in out + out); the backward adds
+    dL/da (2 in out) and the swish's backward (8 an input) to the forward it
+    recomputes; the parameters' partials add the outer product and bias (2
+    in out + out) and the softplus term (2 an input)."""
+    widths = (3, 8, 8, 8, 8, 8, 8, 3)
+    fwd = bwd = par = trans = 0
+    for inp, out in zip(widths[:-1], widths[1:]):
+        fwd += 4 * inp + 2 * inp * out + out
+        bwd += 2 * inp * out + 8 * inp
+        par += 2 * inp * out + out + 2 * inp
+        trans += inp
+    n = points * blocks
+    return {"forward": (n * (fwd + 3), n * trans),
+            "backward_x": (n * (2 * fwd + bwd + 3), 2 * n * trans),
+            "backward_params": (n * (2 * fwd + bwd + par + 3), 2 * n * trans)}
+
+
+def check_residual_chain(dev):
+    """phi's residual-chain kernels against the module path at the cells'
+    shapes (PHI_SHAPES; the last layer of each block undone from its /1000
+    init, so the blocks' nonlinear parts show): the forward, dL/dx and the
+    parameters' gradients of sum(phi(x) * r), and 1 and 200 power-iteration
+    rounds; two calls give the same bits. Timed per pass (CUDA events, the
+    card kept busy ahead), with the forward's launch floor (its launch with
+    an empty body) and the module path's eager ms."""
+    from shwd_torch.flows import make_flow
+    from shwd_torch.flows.residual import kernel_layers
+    from shwd_torch.ops import residual_chain as rc
+
+    def module_forward(chain, x):
+        for f in chain.flows:
+            x = f(x)
+        return x
+
+    def module_grads(chain, x, r):
+        x = x.clone().requires_grad_(True)
+        chain.zero_grad(set_to_none=True)
+        torch.sum(module_forward(chain, x) * r).backward()
+        return x.grad, torch.cat([getattr(m, f).grad.reshape(-1) for fl in chain.flows
+                                  for m in fl.net.layers for f in ("w", "b", "beta")])
+
+    def chain_of(blocks, seed):
+        chain = make_flow("Residual", blocks,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+        with torch.no_grad():
+            for f in chain.flows:
+                f.net.layers[-1].w.mul_(1000.0)
+        return chain
+
+    report, timing = {}, {}
+    for name, (n, blocks) in PHI_SHAPES.items():
+        chain = chain_of(blocks, 0)
+        layers = kernel_layers(chain)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(n, 3, device=dev, generator=gen)
+        r = torch.randn(n, 3, device=dev, generator=gen)
+        y, saved = rc.chain_forward(x, layers, save=True)
+        gx, partials = rc.chain_backward(saved, r, layers)
+        grads = rc.chain_grad_reduce(partials, layers)
+        again = (rc.chain_forward(x, layers, save=True)[0],
+                 *rc.chain_backward(saved, r, layers))
+        same = all(torch.equal(a, b) for a, b in zip((y, gx, partials), again))
+        same = same and torch.equal(grads, rc.chain_grad_reduce(again[2], layers))
+        wx, wgrads = module_grads(chain, x, r)
+        with torch.no_grad():
+            wy = module_forward(chain, x)
+        err_y = float((y - wy).abs().max())
+        err_gx = float((gx - wx).abs().max() / wx.abs().max())
+        err_gp = float((grads - wgrads).abs().max() / wgrads.abs().max())
+        power = {}
+        for rounds in (1, 200):
+            a, b = chain_of(blocks, 2), chain_of(blocks, 2)
+            a.update_state(rounds)
+            for f in b.flows:
+                f.update_state(rounds)
+            power[rounds] = max(float((u - v).abs().max()) for u, v in
+                                zip(a.state_dict().values(), b.state_dict().values()))
+        torch.cuda.synchronize()
+        check(same, f"residual chain {name}: two calls differ")
+        # rounding of f32 products in another order (module: cuBLAS)
+        check(err_y <= 1e-5 * float(wy.abs().max()), f"residual chain {name}: y off by {err_y}")
+        check(err_gx <= 1e-5, f"residual chain {name}: dL/dx off by {err_gx} of its largest")
+        check(err_gp <= 1e-4, f"residual chain {name}: parameters' gradients off by {err_gp}")
+        check(power[1] <= 1e-5 and power[200] <= 1e-4,
+              f"residual chain {name}: power iteration off by {power}")
+        counts = phi_counts(n, blocks)
+        bound = {k: bound_ms(12 * n * (2 + (blocks if k == "forward" else 0)), *c)
+                 for k, c in counts.items()}
+        probe = chain_of(blocks, 3)
+        probe_layers = kernel_layers(probe)
+        timing[name] = {
+            "forward_ms": time_ms(lambda: rc.chain_forward(x, layers, save=True), reps=9,
+                                  ahead=True),
+            "backward_x_ms": time_ms(lambda: rc.chain_backward(saved, r, layers, True, False),
+                                     reps=9, ahead=True),
+            "backward_params_ms": time_ms(
+                lambda: rc.chain_backward(saved, r, layers, False, True), reps=9, ahead=True),
+            "grad_reduce_ms": time_ms(lambda: rc.chain_grad_reduce(partials, layers), reps=9,
+                                      ahead=True),
+            "power_iteration_1_ms": time_ms(lambda: rc.chain_power_iteration(probe_layers, 1),
+                                            reps=9, ahead=True),
+            "power_iteration_200_ms": time_ms(
+                lambda: rc.chain_power_iteration(probe_layers, 200), reps=5, ahead=True),
+            "launch_floor_ms": time_ms(lambda: rc.chain_launch_floor(x), reps=9, ahead=True),
+            "plain_forward_ms": time_ms(lambda: module_forward(chain, x)),
+            "plain_forward_backward_ms": time_ms(lambda: module_grads(chain, x, r)),
+            "plain_power_iteration_1_ms": time_ms(lambda: [f.update_state(1)
+                                                           for f in probe.flows]),
+            "backward_grid": int(partials.shape[0]),
+            "bound_ms": {k: v[0] for k, v in bound.items()},
+            "bound_by": {k: v[1] for k, v in bound.items()},
+            "ops": {k: c[0] for k, c in counts.items()}}
+        report[name] = {"max_abs_err_y": err_y, "rel_err_gx": err_gx, "rel_err_grads": err_gp,
+                        "power_iteration_max_abs_err": power, "same_bits": same}
+    emit({"phase": "kernel_check", "kernel": "residual_chain", "checks": report,
+          "timing": timing, "launches_per_pass": {
+              "forward": 1, "backward_x": 1, "backward_params": 2, "power_iteration": 1},
+          "nodes_per_shwd_step": PHI_NODES})
+    t = timing["flow_2400x3_5_blocks"]
+    return {"name": "residual_chain_forward", "route": "cuda",
+            "source": "shwd_torch/csrc/residual_chain.cu",
+            "replaces": "none (shwd_tpu/flows/lipschitz.py is plain jnp)",
+            "max_abs_err": max(c["max_abs_err_y"] for c in report.values()),
+            "ms": t["forward_ms"], "plain_ms": t["plain_forward_ms"],
+            "bound_ms": t["bound_ms"]["forward"], "bound_by": t["bound_by"]["forward"],
+            "launch_floor_ms": t["launch_floor_ms"], "library_ms": None,
+            "timing": timing}
+
+
 def flow_config():
     from shwd_torch.train.flow_driver import FlowConfig
     return FlowConfig(method="SHWD", num_iterations=400, eval_interval=50,
@@ -844,7 +990,8 @@ def phase_flow(dev):
           "launches": launches, "iterations": cfg.num_iterations,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
     check(res.path == "fused" and res.graph["captured"], f"flow: path {res.path}")
-    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2},
+    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2,
+                                          **PHI_NODES},
           f"flow: graph kernel nodes {res.graph['nodes_by_kernel']}")
     check(np.isfinite(res.clouds).all() and res.clouds.shape == (FLOW_N, 3),
           "flow: malformed clouds")
@@ -1565,7 +1712,7 @@ def phase_registration_max_ssw(dev, log_dir):
 def phase_registration_ssw_1024(dev, log_dir):
     """w_cos on the ssw solver (geodesic, p = 2, 100 projections) at
     N = M = 1024: the p = 2 correlation branch of circle_ot on 12 800
-    problems per solve."""
+    problems per solve; no transport kernel launches, phi's do."""
     from shwd_torch.losses import SHWDConfig, TransportConfig
     cfg = registration_config(
         log_dir, "ssw_1024", points=SSW_N,
@@ -1576,8 +1723,14 @@ def phase_registration_ssw_1024(dev, log_dir):
     run, trainer, res, ds = run_registration(dev, cfg)
     run.update(profile_train_step(trainer, res["state"], ds))
     emit({"phase": "registration_ssw_1024", "batch": REG_B, "points": SSW_N, "run": run})
-    check(not any(run["launches"].values()),
-          f"registration_ssw_1024: launches {run['launches']}")
+    # no transport kernel; phi's kernels as its graphs' nodes times (replays +
+    # warm-up), and its construction's power iteration
+    for kernel, n in run["launches"].items():
+        want = (graph_launches(run["graphs"], kernel)
+                + (kernel == "residual_chain_power_iteration")
+                if kernel.startswith("residual_chain") else 0)
+        check(n == want, f"registration_ssw_1024: {kernel} launched {n} times, "
+              f"expected {want}: launches {run['launches']}")
     check(run["path"] == "fused", f"registration_ssw_1024: path {run['path']}")
 
 
@@ -1637,7 +1790,8 @@ def phase_flow_ellipsoid(dev):
                       "cd_curve": twin.eval_values.tolist(), "launches": k4,
                       "jax_final_cd_at_1000": twin_jax}})
     check(res.path == "fused" and res.graph["captured"], f"flow_ellipsoid: path {res.path}")
-    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2},
+    check(res.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2,
+                                          **PHI_NODES},
           f"flow_ellipsoid: graph kernel nodes {res.graph['nodes_by_kernel']}")
     check(bool(np.isfinite(res.eval_values).all()) and np.isfinite(res.clouds).all(),
           "flow_ellipsoid: non-finite W2 or clouds")
@@ -2198,16 +2352,23 @@ def phase_launches_per_call(dev, kernels):
     path's shape: the kernel nodes of a CUDA graph captured around the
     call, which must be 1 and the graph's only node, for the warm-up, the
     auction (prices and eps0 given, as every main path gives them), the
-    fused Sinkhorn and the Chamfer. Runs after the main paths. (It read
+    fused Sinkhorn, the Chamfer and phi's forward. Runs after the main
+    paths. (It read
     torch.profiler's timeline until PR 6; on the card that timeline at
     times held no kernel of these libraries at all, up to ten traces
     running, while it held PyTorch's own kernels.)"""
+    from shwd_torch.flows import make_flow
+    from shwd_torch.flows.residual import kernel_layers
     from shwd_torch.ops import auction as au
+    from shwd_torch.ops import residual_chain as rc
     from shwd_torch.ops import sinkhorn_fused as sp
     from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops.chamfer import chamfer_tiled
     from shwd_torch.ops.costs import cost_matrix
     src, tgt = flow_clouds(dev)
+    phi_layers = kernel_layers(make_flow(
+        "Residual", 5, generator=torch.Generator(device=dev).manual_seed(0)))
+    phi_x = torch.cat([src, tgt]).contiguous()
     fx, fy = src[None].contiguous(), tgt[None].contiguous()
     flow_cost = cost_matrix(fx, fy, "lp", 2.0).contiguous()
     kw = dict(eps=1e-5, num_iters=40, num_scales=8)
@@ -2219,7 +2380,8 @@ def phase_launches_per_call(dev, kernels):
         "auction_assignment": lambda: au.auction_assignment(
             flow_cost, EPS_FINAL, max_sweeps=4000, prices0=prices0, eps0=eps0),
         "sinkhorn_points": lambda: sp._fused_forward(reg_x, reg_y, "lp", 2.0, **REG_SINK),
-        "chamfer_tiled": lambda: chamfer_tiled(fx, fy)}
+        "chamfer_tiled": lambda: chamfer_tiled(fx, fy),
+        "residual_chain_forward": lambda: rc.chain_forward(phi_x, phi_layers)}
     seen = {}
     for k in kernels:
         kinds = graph_nodes(calls[k["name"]])
@@ -2246,6 +2408,7 @@ def main() -> int:
     del flow_cost
     k3 = check_sinkhorn_points(dev)
     k4 = check_chamfer(dev)
+    k5 = check_residual_chain(dev)
     k1["launches"] = launches["emd2_warmup"]
     k2["launches"] = launches["auction_assignment"]
     check_auction_seeded(k2, captured)
@@ -2287,8 +2450,8 @@ def main() -> int:
                           pseudo_run)
         phase_fused_vs_per_step(dev, refs)
     phase_comparison(dev)
-    phase_launches_per_call(dev, [k1, k2, k3, k4])
-    emit({"kernels": [k1, k2, k3, k4]})
+    phase_launches_per_call(dev, [k1, k2, k3, k4, k5])
+    emit({"kernels": [k1, k2, k3, k4, k5]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

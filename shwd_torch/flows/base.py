@@ -19,6 +19,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops import residual_chain
+
 
 class Flow(nn.Module):
     """Base class; subclasses override forward_logdet (+ optionally inverse)."""
@@ -38,13 +40,19 @@ class Flow(nn.Module):
 
 
 class FlowChain(Flow):
-    """Composition of flows, applied left to right."""
+    """Composition of flows, applied left to right. A chain of residual
+    blocks that ``flows.residual.kernel_route`` admits runs its forward
+    (without log-det) and its power iterations as CUDA kernels."""
 
     def __init__(self, flows: Sequence[Flow]):
         super().__init__()
         self.flows = nn.ModuleList(flows)
 
     def forward_logdet(self, x, logdet: bool = False):
+        from .residual import kernel_route
+        layers = kernel_route(self, x.device, x.dtype, logdet)
+        if layers is not None:
+            return residual_chain.residual_chain(x, layers), None
         total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device) \
             if logdet else None
         for f in self.flows:
@@ -55,6 +63,12 @@ class FlowChain(Flow):
 
     @torch.no_grad()
     def update_state(self, n_iter: int = 1) -> None:
+        from .residual import kernel_route
+        w = next(self.parameters(), None)
+        layers = None if w is None else kernel_route(self, w.device, w.dtype)
+        if layers is not None:
+            residual_chain.power_iteration(layers, n_iter)
+            return
         for f in self.flows:
             f.update_state(n_iter)
 

@@ -56,7 +56,8 @@ class SpectralLinear(nn.Module):
             torch.randn(out_features, generator=generator, device=dev)))
         self.register_buffer("v", _normalize(
             torch.randn(in_features, generator=generator, device=dev)))
-        self.power_iter(power_iters)
+        if power_iters > 0:
+            self.power_iter(power_iters)
 
     @torch.no_grad()
     def power_iter(self, n_iter: int = 1) -> None:
@@ -79,18 +80,21 @@ class SpectralLinear(nn.Module):
 class LipschitzMLP(nn.Module):
     """channels e.g. [3, 8, 8, 8, 8, 8, 8, 3]: Swish -> SpectralLinear per
     layer, the activation before each linear, the last linear
-    approximately zero-initialised. Lipschitz constant < prod(coeff) < 1."""
+    approximately zero-initialised. Lipschitz constant < prod(coeff) < 1.
+    Each layer runs ``power_iters`` rounds once drawn (0 leaves them to the
+    caller: ``make_residual_chain`` runs them for the whole chain)."""
 
     def __init__(self, channels: Sequence[int], lipschitz_const: float = 0.97,
                  init_zeros: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 power_iters: int = 200):
         super().__init__()
         self.channels = tuple(channels)
         n_layers = len(channels) - 1
         self.layers = nn.ModuleList(
             SpectralLinear(channels[i], channels[i + 1], lipschitz_const,
                            zero_init=init_zeros and i == n_layers - 1,
-                           generator=generator)
+                           generator=generator, power_iters=power_iters)
             for i in range(n_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

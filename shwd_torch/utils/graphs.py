@@ -62,12 +62,16 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
 def kernel_wrappers() -> dict:
     """The port's CUDA kernel wrappers by name; each counts its launches in
     ``.launches``."""
-    from ..ops import auction, sinkhorn_fused, sinkhorn_kernels
+    from ..ops import auction, residual_chain, sinkhorn_fused, sinkhorn_kernels
     from ..ops.chamfer import chamfer_tiled
     return {"emd2_warmup": sinkhorn_kernels.emd2_warmup,
             "auction_assignment": auction.auction_assignment,
             "sinkhorn_points": sinkhorn_fused.sinkhorn_points,
-            "chamfer_tiled": chamfer_tiled}
+            "chamfer_tiled": chamfer_tiled,
+            "residual_chain_forward": residual_chain.chain_forward,
+            "residual_chain_backward": residual_chain.chain_backward,
+            "residual_chain_grad_reduce": residual_chain.chain_grad_reduce,
+            "residual_chain_power_iteration": residual_chain.chain_power_iteration}
 
 
 def _collect(obj, tensors: list, generators: list, seen: set) -> None:

@@ -899,11 +899,19 @@ def test_step_graph_marks_time_the_step(cuda):
     assert profiling.records()[-1].attrs == got
 
 
+# phi's residual-chain kernels in an SHWD step: the inner pass forward, its
+# backward with the parameters' partials and their reduction, the power
+# iteration; the final pass forward and its dL/dx
+PHI_NODES = {"residual_chain_forward": 2, "residual_chain_backward": 2,
+             "residual_chain_grad_reduce": 1, "residual_chain_power_iteration": 1}
+
+
 @pytest.mark.gpu
 def test_captured_flow_step_matches_the_per_step_loop(cuda):
     """The Flow_cube SHWD/hybrid step (1200 points, K1 once and K2 twice a
     step) captured and replayed 10 times gives the per-step loop's points
-    (atol 1e-6) and W2; the graph holds K1 once and K2 twice."""
+    (atol 1e-6) and W2; the graph holds K1 once, K2 twice and phi's six
+    kernel nodes."""
     from shwd_torch.ops.sphere_sampling import sample_cube_surface
     from shwd_torch.train import flow_driver as fd
 
@@ -917,7 +925,8 @@ def test_captured_flow_step_matches_the_per_step_loop(cuda):
     assert tk.emd2_warmup.launches - k1 == 11 and ta.auction_assignment.launches - k2 == 22
     step = fd.run_flow(src, tgt, cfg, fused=False)
     assert fused.path == "fused" and step.path.startswith("per_step")
-    assert fused.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2}
+    assert fused.graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2,
+                                              **PHI_NODES}
     np.testing.assert_allclose(fused.clouds, step.clouds, rtol=0, atol=1e-6)
     np.testing.assert_allclose(fused.eval_values, step.eval_values, rtol=1e-5)
 
@@ -1215,7 +1224,8 @@ def test_ellipsoid_flow_fused_equals_per_step_with_the_decaying_lr(cuda):
             return 0.0
         out[fused] = fd.run_flow(src, tgt, cfg, eval_fn=keep, fused=fused)
     assert out[True].path == "fused" and out[False].path.startswith("per_step")
-    assert out[True].graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2}
+    assert out[True].graph["nodes_by_kernel"] == {"emd2_warmup": 1, "auction_assignment": 2,
+                                                  **PHI_NODES}
     np.testing.assert_allclose(seen[True][1], seen[False][1], rtol=0, atol=1e-5)
     np.testing.assert_allclose(out[True].clouds, out[False].clouds, rtol=0, atol=1e-5)
     assert not np.array_equal(seen[True][1], seen[True][0])
