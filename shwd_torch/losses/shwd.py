@@ -21,7 +21,9 @@ whether a call runs the inner steps at all (``inner_gate``), so a graph is
 captured per value of that gate. Inside a captured step, phi's passes
 (``phi_forward``) and its inner update (``phi_update``: the objective's
 backward, Adam and the power iteration) are device marks
-(``utils.profiling.device_span``).
+(``utils.profiling.device_span``). On the hybrid solver the loss keeps the
+solves of its last train call (``train_solves``): inside a captured step
+they are the graph's own buffers, which every replay rewrites.
 """
 
 from __future__ import annotations
@@ -96,6 +98,14 @@ class SHWDLoss:
         # forward see the same clouds through phi one Adam step apart, so
         # the second solve warm-restarts from the first's matching + duals
         self._warm_hybrid = cfg.transport.solver == "hybrid"
+        # the hybrid solves of the last train call, in order (the inner
+        # ones, then the final one): dicts of ``assign`` (the permutation
+        # the value was gathered at, (B, N) int32), ``unassigned`` (the
+        # auction's matching, -1 where the sweep cap left a person),
+        # ``sweeps`` (B,), ``prices`` (B, N), and ``x`` and ``y``, the
+        # mapped clouds the solve's cost was built from, as that call
+        # made them
+        self.train_solves: list[dict] | None = None
 
     def _new_opt(self, phi: FlowChain) -> torch.optim.Adam:
         c = self.cfg
@@ -126,7 +136,8 @@ class SHWDLoss:
         call is cold, every later one warm; so the branch is chosen at the
         call site and the step never syncs with the host. The warm matching
         and prices live only within a call: inside a captured step they are
-        buffers of the graph's own pool, written by every replay.
+        buffers of the graph's own pool, written by every replay. Returns
+        (value, warm state for the next solve, the solve's record).
         """
         tp = self.cfg.transport
         batched = sx.ndim == 3
@@ -134,7 +145,7 @@ class SHWDLoss:
             sx, sy = sx[None], sy[None]
         c = cost_matrix(sx, sy, tp.cost, tp.p)
         assign0, prices0 = warm if warm is not None else (None, None)
-        assign_value, assign, prices, _ = hybrid_assignment_warm(
+        assign_value, assign, prices, sweeps = hybrid_assignment_warm(
             c, assign0, prices0, use_warm=warm is not None, eps_final=1e-7,
             sink_eps=tp.eps, sink_iters=tp.num_iters,
             sink_scales=tp.num_scales)
@@ -143,7 +154,9 @@ class SHWDLoss:
         # unbatched input: drop the batch dim and skip the reduction, as the
         # transport path does (the JAX package keeps a (1,) result here)
         val = reduce_batch(val, tp.reduce) if batched else val[0]
-        return val, (assign, prices.detach())
+        solve = {"assign": assign_value, "unassigned": assign, "sweeps": sweeps,
+                 "prices": prices, "x": sx.detach(), "y": sy.detach()}
+        return val, (assign, prices.detach()), solve
 
     def _flow_pair(self, phi, x, y):
         """One phi pass over both clouds (concatenated along the point
@@ -153,17 +166,19 @@ class SHWDLoss:
             s = phi(torch.cat([x, y], dim=-2))
         return s[..., :n, :], s[..., n:, :]
 
-    def _inner_objective(self, phi, x, y, lam, warm, generator):
-        """phi's ascent objective lam * reg - W, and the new warm state."""
+    def _inner_objective(self, phi, x, y, lam, warm, generator, solves):
+        """phi's ascent objective lam * reg - W, and the new warm state; a
+        hybrid solve's record is appended to ``solves``."""
         sx, sy = self._flow_pair(phi, x, y)
         if self._warm_hybrid:
-            w, warm = self._transport_warm(sx, sy, warm)
+            w, warm, solve = self._transport_warm(sx, sy, warm)
+            solves.append(solve)
         else:
             w = self.transport(sx, sy, generator)
         reg = lam * (sphere_regularizer(sx) + sphere_regularizer(sy))
         return reg - w, warm
 
-    def _inner_steps(self, state: SHWDState, x, y):
+    def _inner_steps(self, state: SHWDState, x, y, solves):
         """max_iter adversarial Adam steps on phi against detached clouds."""
         xd, yd = x.detach(), y.detach()
         cfg = self.cfg
@@ -171,7 +186,7 @@ class SHWDLoss:
         for _ in range(cfg.max_iter):
             state.opt.zero_grad(set_to_none=True)
             obj, warm = self._inner_objective(state.phi, xd, yd, state.lam, warm,
-                                              state.generator)
+                                              state.generator, solves)
             with device_span("phi_update"):
                 obj.backward()
                 # a data-parallel fit: the batch mean's gradient is the
@@ -189,6 +204,7 @@ class SHWDLoss:
         """Returns ((w, sphere_x, sphere_y), state)."""
         cfg = self.cfg
         warm = None
+        solves = []
         if train:
             if cfg.refresh:
                 state.phi = self.make_phi(state.generator)
@@ -196,13 +212,15 @@ class SHWDLoss:
             # once the strike limit is hit the inner work is skipped, and
             # the final solve starts cold
             if inner_gate(cfg, state.strikes):
-                warm = self._inner_steps(state, x, y)
+                warm = self._inner_steps(state, x, y, solves)
             if cfg.lam_decay != 1.0:
                 state.lam.mul_(cfg.lam_decay)
         # final (undetached) forward: the gradient path to x and y
         sx, sy = self._flow_pair(state.phi, x, y)
         if self._warm_hybrid:
-            w, _ = self._transport_warm(sx, sy, warm)
+            w, _, solve = self._transport_warm(sx, sy, warm)
+            if train:
+                self.train_solves = solves + [solve]
         else:
             w = self.transport(sx, sy, state.generator)
         return (w, sx, sy), state

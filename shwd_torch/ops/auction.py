@@ -22,7 +22,7 @@ import torch
 
 from .. import _kernels
 from ..parallel.mesh import group_max, group_min
-from ..utils.profiling import device_span
+from ..utils.profiling import device_count, device_span
 from .sinkhorn import emd2_approx
 from .sinkhorn_kernels import emd2_warmup, warmup_supported
 
@@ -280,18 +280,20 @@ def _sinkhorn_warm_prices(cost, sink_eps, sink_iters, sink_scales):
     The dispatch rule is the JAX package's, with ``is_cuda`` for "on the
     accelerator": the warm-up kernel once N*M >= 512^2 and the shape passes
     ``warmup_supported``; smaller problems take the plain batched
-    ``emd2_approx`` (batch-global eps0), as they do in JAX.
+    ``emd2_approx`` (batch-global eps0), as they do in JAX. Inside a
+    captured step the warm-up is the device mark ``warm_prices``.
     """
     cost = cost.detach()
-    if (cost.is_cuda and cost.ndim == 3
-            and cost.shape[-2] * cost.shape[-1] >= 512 * 512
-            and warmup_supported(cost.shape[-2], cost.shape[-1])):
-        _, f, g = emd2_warmup(cost.contiguous(), eps=sink_eps,
-                              num_iters=sink_iters, num_scales=sink_scales)
-    else:
-        _, f, g = emd2_approx(cost, eps=sink_eps, num_iters=sink_iters,
-                              num_scales=sink_scales, return_potentials=True)
-    return -g                      # benefit = -C; dual price ~ g
+    with device_span("warm_prices"):
+        if (cost.is_cuda and cost.ndim == 3
+                and cost.shape[-2] * cost.shape[-1] >= 512 * 512
+                and warmup_supported(cost.shape[-2], cost.shape[-1])):
+            _, f, g = emd2_warmup(cost.contiguous(), eps=sink_eps,
+                                  num_iters=sink_iters, num_scales=sink_scales)
+        else:
+            _, f, g = emd2_approx(cost, eps=sink_eps, num_iters=sink_iters,
+                                  num_scales=sink_scales, return_potentials=True)
+        return -g                  # benefit = -C; dual price ~ g
 
 
 def _hybrid_eps0(cost: torch.Tensor, eps_final: float) -> torch.Tensor:
@@ -396,6 +398,13 @@ def hybrid_assignment_warm(cost: torch.Tensor, assign0: torch.Tensor | None,
     (assign_value, assign_warm, prices, sweeps): ``assign_value`` is
     argmin-patched for the gather; ``assign_warm`` keeps -1 for any
     sweep-cap stragglers so it is always a safe seed.
+
+    Inside a captured step (``utils.profiling.device_count``) each solve
+    counts its sweeps summed over the batch (``auction_sweeps``), its
+    stragglers, the persons the sweep cap left at -1 (``auction_stragglers``),
+    and its problems (``auction_problems``, the batch size). It adds no
+    kernel node: the stragglers' mask is the patch's own and the sweeps are
+    the kernel's output.
     """
     cost = cost.detach()
     if use_warm:
@@ -408,8 +417,12 @@ def hybrid_assignment_warm(cost: torch.Tensor, assign0: torch.Tensor | None,
         cost.contiguous(), eps_final, max_sweeps=max_sweeps,
         prices0=prices.contiguous(), eps0=_hybrid_eps0(cost, eps_final),
         assign0=None if seed is None else seed.to(torch.int32).contiguous())
+    stragglers = assign < 0
     assign_value = torch.where(
-        assign < 0, torch.argmin(cost, dim=-1).to(torch.int32), assign)
+        stragglers, torch.argmin(cost, dim=-1).to(torch.int32), assign)
+    device_count("auction_sweeps", lambda: sweeps)
+    device_count("auction_stragglers", lambda: stragglers)
+    device_count("auction_problems", lambda: cost.shape[0])
     return assign_value, assign, prices, sweeps
 
 

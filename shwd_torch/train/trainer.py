@@ -151,6 +151,8 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.crit_init, self.crit_apply = build_criterion(cfg)
+        # the criterion object behind ``crit_apply`` (None for a function)
+        self._criterion = getattr(self.crit_apply, "__self__", None)
         self._early_stop_enabled = (cfg.criterion in ("w_cos", "w1_cos")
                                     and cfg.shwd.early_stop_strikes > 0)
         # max-SSW's loss is a sum over the batch: ranks add up, not average
@@ -248,7 +250,7 @@ class Trainer:
         """The step graphs and static accumulators of ``state`` (made anew
         for another state object)."""
         if self._fused.get("state") is not state:
-            self._fused = {"state": state, "graphs": {},
+            self._fused = {"state": state, "graphs": {}, "solves": {},
                            "loss_sum": torch.zeros((), device=self.device),
                            "val_sums": torch.zeros(3, device=self.device),
                            "val_split": torch.zeros(3, device=self.device)}
@@ -293,8 +295,13 @@ class Trainer:
         gate = (self.cfg.criterion not in ("w_cos", "w1_cos")
                 or inner_gate(self.cfg.shwd, state.crit_state.strikes))
 
+        key = ("train", gate)
+        solves = fused["solves"]
+
         def step(*inputs):
             loss_sum.add_(self._train_step(state, RegistrationBatch(*inputs)))
+            # the solves this graph's replays rewrite (on the CPU, this call's)
+            solves[key] = getattr(self._criterion, "train_solves", None)
 
         count = 0
         batch_s = launch_s = 0.0
@@ -308,7 +315,7 @@ class Trainer:
                                          shuffle=True, rng=rng):
                 rows = self._rows(batch)
                 batch_s += time.perf_counter() - clock
-                graph = self._step_graph(state, ("train", gate), step, rows)
+                graph = self._step_graph(state, key, step, rows)
                 graph.capture()
                 launch = time.perf_counter()
                 graph(*rows)
@@ -316,6 +323,7 @@ class Trainer:
                 launch_s += clock - launch
                 count += 1
             loss = float(pmesh.reduce_values(loss_sum, self._reduce)) / max(count, 1)
+            fused["last_train"] = key
             self._collect()
             rec.attrs.update(steps=count, batch_s=batch_s, launch_s=launch_s)
         return state, loss
@@ -411,6 +419,26 @@ class Trainer:
         (``StepGraph.collect``); call after a host sync."""
         for graph in self._fused.get("graphs", {}).values():
             graph.collect()
+
+    def last_solves(self) -> list[dict] | None:
+        """The exact-EMD solves of the last train step on the ``hybrid``
+        solver, in order (phi's inner ones, then the final one), as copies:
+        each a dict of ``assign`` (the permutation the loss was gathered
+        at, (B, N) int32; a sweep-cap straggler takes its row's argmin),
+        ``sweeps`` (B,), ``prices`` (B, N), ``stragglers`` (B,), the
+        persons the sweep cap left unassigned, and ``x`` and ``y`` (B, N,
+        3), phi's images of the two clouds, from which the solve's cost was
+        built. None for another criterion or solver, or before a train
+        step. On the fused path the tensors are the captured step's own, so
+        the read adds nothing to the step; the copies are ordered after its
+        last replay on the stream."""
+        fused = self._fused.get("solves", {}).get(self._fused.get("last_train"))
+        solves = fused if self.execution_path() == "fused" else getattr(
+            self._criterion, "train_solves", None)
+        if not solves:
+            return None
+        return [{**{k: s[k].clone() for k in ("assign", "sweeps", "prices", "x", "y")},
+                 "stragglers": (s["unassigned"] < 0).sum(-1)} for s in solves]
 
     def graph_stats(self) -> list[dict]:
         """``StepGraph.stats()`` of each step graph of the state being

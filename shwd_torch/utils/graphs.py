@@ -19,7 +19,8 @@ one replay per step. ``StepGraph`` holds:
 - device marks (``utils.profiling.device_span``): the capture records the
   step's marks, and the whole step as ``graph``, as timing-event nodes;
   ``collect()``, called after a host sync, notes the last replay's
-  milliseconds by label in the profiling store;
+  milliseconds by label in the profiling store, and its device counters
+  (``utils.profiling.device_count``) by label;
 - on the CPU, a direct call of the same function on the same static
   buffers: the same path without capture.
 
@@ -183,6 +184,7 @@ class StepGraph:
         self.capture_seconds = 0.0
         self._launches: list = []          # (kernel wrapper, its nodes)
         self._marks: profiling.DeviceMarks | None = None
+        self._counters: profiling.DeviceCounters | None = None
         self._collected = 0                # replays at the last collect
 
     @property
@@ -217,9 +219,10 @@ class StepGraph:
         before = {k: w.launches for k, w in wrappers.items()}
         collectives = pmesh.collective_calls
         marks = profiling.DeviceMarks(stream)
+        counters = profiling.DeviceCounters()
         try:
             with (torch.cuda.graph(graph, stream=stream), profiling.capturing(marks),
-                  profiling.device_span("graph")):
+                  profiling.counting(counters), profiling.device_span("graph")):
                 outputs = self.fn(*self.inputs)
         except Exception as err:
             raise RuntimeError(f"capturing step {self.name!r} as a CUDA graph "
@@ -240,6 +243,7 @@ class StepGraph:
             graph.instantiate()
         self.graph, self.outputs = graph, outputs
         self._marks = marks if marks.spans else None
+        self._counters = counters if counters.parts else None
         self.capture_seconds = time.perf_counter() - t0
 
     def __call__(self, *values: torch.Tensor):
@@ -260,17 +264,20 @@ class StepGraph:
         """Call after a host sync that follows the replays: notes in the
         profiling store (``graph.collect``) the graph's name, the replays
         since the last collect and the last replay's device milliseconds,
-        the whole step's (``graph_ms``) and each mark's (``ms``), and
-        returns that record's attributes. None on the CPU, before a
-        replay and when nothing was replayed since the last collect."""
+        the whole step's (``graph_ms``) and each mark's (``ms``), and,
+        where the step keeps device counters, the last replay's counts by
+        label (``counts``); returns that record's attributes. None on the
+        CPU, before a replay and when nothing was replayed since the last
+        collect."""
         fresh = self.replays - self._collected
         if self._marks is None or fresh <= 0:
             return None
         self._collected = self.replays
         ms = self._marks.elapsed_ms()
         graph_ms = ms.pop("graph")
+        counts = {} if self._counters is None else {"counts": self._counters.read()}
         return profiling.note("graph.collect", graph=self.name, replays=fresh,
-                              graph_ms=graph_ms, ms=ms).attrs
+                              graph_ms=graph_ms, ms=ms, **counts).attrs
 
     def stats(self) -> dict:
         """Name, replays (calls on the CPU), the graph's kernel nodes, each

@@ -21,6 +21,11 @@ Counterpart of ``shwd_tpu/utils/profiling.py`` (``trace``,
   become event nodes of the graph (``DeviceMarks``). ``StepGraph.collect``
   reads the last replay's milliseconds by label after a host sync the
   caller makes anyway, and notes them in the store.
+- ``device_count(label, value)``: a counter inside a captured step
+  (``DeviceCounters``): during a capture, or inside ``counting``, the
+  tensor ``value()`` (the step's own, rewritten by every replay) is kept,
+  and ``StepGraph.collect`` notes the last replay's sums by label; outside,
+  ``value`` is not called.
 - ``records(start_s, end_s)``: the store's finished records that lie inside
   a ``time.perf_counter`` interval, for readers of the spans (the
   benchmark's per-layer metrics, an operator).
@@ -240,6 +245,55 @@ def device_span(label: str):
     a ``StepGraph`` capture (eager steps, the CPU)."""
     marks = _capturing
     return _NO_MARK if marks is None else _Mark(marks, label)
+
+
+# -- device counters inside a captured step ----------------------------------
+
+class DeviceCounters:
+    """The counts one captured step keeps on the device: ``parts`` holds
+    (label, tensor or int). A tensor is the step's own (written by every
+    replay) and counts its sum; an int counts itself each replay."""
+
+    def __init__(self):
+        self.parts: list[tuple] = []
+
+    def add(self, label: str, value) -> None:
+        self.parts.append((label, value))
+
+    def read(self) -> dict:
+        """The last replay's count by label (after a sync), summed over a
+        label's parts: one copy to the host for all of them."""
+        tensors = [v for _, v in self.parts if isinstance(v, torch.Tensor)]
+        sums = iter(torch.stack([t.sum(dtype=torch.int64) for t in tensors]).tolist()
+                    if tensors else [])
+        out: dict = {}
+        for label, v in self.parts:
+            out[label] = out.get(label, 0) + (next(sums) if isinstance(v, torch.Tensor)
+                                              else int(v))
+        return out
+
+
+_counting: Optional[DeviceCounters] = None
+
+
+@contextlib.contextmanager
+def counting(counters: DeviceCounters):
+    """``device_count`` records into ``counters`` inside this block (a
+    ``StepGraph`` capture, or a caller that reads the counts itself)."""
+    global _counting
+    outer, _counting = _counting, counters
+    try:
+        yield counters
+    finally:
+        _counting = outer
+
+
+def device_count(label: str, value) -> None:
+    """Count ``value()`` (a tensor whose sum is the count, or an int) under
+    ``label`` inside a ``counting`` block; outside one nothing is called,
+    so an eager step does no work for it."""
+    if _counting is not None:
+        _counting.add(label, value())
 
 
 # -- trace and throughput ----------------------------------------------------
