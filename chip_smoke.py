@@ -26,8 +26,14 @@ Phases, each printing one JSON line:
      backward to x and to the parameters with their reduction, 1 and 200
      power-iteration rounds, against the module path at the flow's 2400
      points through 5 blocks and the train steps' 32768 and 8192 through
-     3, with the forward's launch floor and the module path's eager ms);
-     K1, K3, K4 and phi's kernels must give the same bits on two calls;
+     3, with the forward's launch floor and the module path's eager ms),
+     the small-problem warm-up (csrc/sinkhorn_warm.cu: emd2_approx's
+     potentials at the registration trainer's 128x128x128, at the
+     benchmark cell's last validation batch 25x128x128 and this script's
+     51, and a ragged 3x100x120, against emd2_approx on the card, timed
+     beside it at 128 and 25);
+     K1, K3, K4, phi's kernels and the small-problem warm-up must give the
+     same bits on two calls;
   4. slice 1: the Flow_cube SHWD gradient flow through
      shwd_torch.train.flow_driver.run_flow (1200 points, 5 Residual
      layers, hybrid exact-EMD solver, 400 iterations), fused: one step
@@ -65,8 +71,9 @@ Phases, each printing one JSON line:
      step and each eval batch shape captured as CUDA graphs and replayed):
      40 epochs with solver="sinkhorn" (K3 twice per train step, once per
      eval batch, as graph nodes), then 4 epochs each with
-     solver="hybrid" (K2) and criterion="cd" (the dense differentiable
-     Chamfer, no kernel); counters reset before and read after each run,
+     solver="hybrid" (K2, priced cold by the small-problem warm-up) and
+     criterion="cd" (the dense differentiable Chamfer, no kernel); counters
+     reset before and read after each run,
      where each graph's nodes times its replays and its warm-up run must
      account for every launch;
      losses and errors must be finite, the best checkpoints must load
@@ -155,7 +162,8 @@ Phases, each printing one JSON line:
      rises with the angle) and translation 0-1 (W rises, within 10 % of
      the magnitude);
   8. launches per call: one call of each wrapper captured in a CUDA graph,
-     whose nodes must be exactly one kernel (K1-K4);
+     whose nodes must be exactly one kernel (K1-K4, phi's forward), and for
+     the small-problem warm-up one kernel besides its temperatures' nodes;
 then the kernel table ({"kernels": [...]}; "launches" counts the kernel's
 launches on the main path, each wrapper call once and, on a fused path, each
 graph replay once per node of that kernel; "launches_pseudo" and
@@ -167,7 +175,8 @@ K3's in phase data_parallel, "launches_sweep" K3's and K2's in the sweep,
 on the twins, "launches_ellipsoid" K1's and K2's and "launches_ellipsoid_cd"
 K4's in phase flow_ellipsoid, "launches_outliers" K3's in phase
 registration_outliers, "launches_jax_init" K3's in phase jax_init's fit,
-"launches_replay" K3's in phase replay's replay of the record,
+"launches_replay" K3's in phase replay's replay of the record, the
+small-problem warm-up's "launches" its own in the hybrid run of phase 5,
 "launches_per_call" is phase 8's count), a
 "phase_seconds" line after each phase added in slice 11, the
 nvidia-smi line, and a last line {"ok": true, "device": {...}}. Any failure raises: the script
@@ -200,6 +209,7 @@ EPS_FINAL = 1e-7
 REG_B, REG_N = 128, 128
 REG_SHAPES, REG_VAL = 256, 51     # the bank, and its 20 % validation split
 REG_SINK = dict(eps=5e-3, num_iters=50, num_scales=4)
+CELL_VAL_TAIL = 25                # the benchmark's hybrid cell: 409 validation shapes, 3 x 128 + 25
 REG_EPOCHS = {"sinkhorn": 40, "hybrid": 4, "cd": 4, "pseudo": 10, "max_ssw": 10,
               "ssw_1024": 3, "data_parallel": 4, "data_parallel_ab": 9, "sweep": 2,
               "hpo": 2, "turns": 5, "outliers": 20, "sinkhorn_div": 2, "fit_memory": 2,
@@ -714,6 +724,78 @@ def check_sinkhorn_points(dev):
             "library_ms": None, "kernel_route": t["route"],
             "general_route_ms": t["general_route_ms"],
             "eval": timing[f"eval_{REG_VAL}x128x128"]}
+
+
+def sinkhorn_warm_bound(b, n, m):
+    """The small-problem warm-up's least time for B items of N x M at
+    REG_SINK (the largest of the bytes, f32 and transcendental terms)."""
+    entries = b * n * m
+    sweeps = REG_SINK["num_iters"] * REG_SINK["num_scales"]
+    # per entry per half-iteration: subtract, multiply-add, max, subtract,
+    # scale, add = 6 ops
+    ops = 2 * sweeps * entries * 6
+    # one exp per entry per half-iteration, one log per row and per column
+    # each iteration
+    transcendentals = 2 * sweeps * entries + sweeps * (b * n + b * m)
+    bytes_moved = entries * 4 + (b * n + b * m + REG_SINK["num_scales"]) * 4
+    return bound_ms(bytes_moved, ops, transcendentals)
+
+
+def check_sinkhorn_warm(dev):
+    """The small-problem warm-up (csrc/sinkhorn_warm.cu) against the plain
+    emd2_approx on the card, at the hybrid solver's cold solves of the
+    registration trainer: the train batch 128x128x128, the benchmark
+    cell's last validation batch (25) and this script's (REG_VAL), and a
+    ragged batch; f and g within 1e-5 of the item's max |C|, two calls the
+    same bits. Then the ms of the kernel's wrapper, of the plain path and
+    the bound, at the train batch and the cell's last validation batch."""
+    from shwd_torch.ops import sinkhorn_kernels as sk
+    from shwd_torch.ops.costs import cost_matrix
+    from shwd_torch.ops.sinkhorn import emd2_approx
+    reg_x, reg_y = registration_clouds(dev)
+    costs = {f"registration_{REG_B}x128x128": cost_matrix(reg_x, reg_y, "lp", 2.0)}
+    for v in (CELL_VAL_TAIL, REG_VAL):
+        costs[f"registration_eval_{v}x128x128"] = costs[
+            f"registration_{REG_B}x128x128"][:v]
+    rag_x, rag_y = rand_clouds(3, 100, 120, 6, dev)
+    costs["ragged_3x100x120"] = cost_matrix(rag_x, rag_y, "lp", 2.0)
+    report = {}
+    for name, c in costs.items():
+        c = costs[name] = c.contiguous()
+        f1, g1 = sk.sinkhorn_warm(c, **REG_SINK)
+        again = sk.sinkhorn_warm(c, **REG_SINK)
+        _, f2, g2 = emd2_approx(c, return_potentials=True, **REG_SINK)
+        torch.cuda.synchronize()
+        check(torch.equal(f1, again[0]) and torch.equal(g1, again[1]),
+              f"sinkhorn_warm {name}: two calls differ")
+        check(bool(torch.isfinite(f1).all() and torch.isfinite(g1).all()),
+              f"sinkhorn_warm {name}: non-finite output")
+        scale = float(c.abs().max())
+        f_err = float((f1 - f2).abs().max())
+        g_err = float((g1 - g2).abs().max())
+        check(max(f_err, g_err) <= 1e-5 * scale,
+              f"sinkhorn_warm {name}: f/g err {f_err} {g_err} (max |C| {scale})")
+        report[name] = {"f_abs_err": f_err, "g_abs_err": g_err, "max_abs_cost": scale}
+    timing = {}
+    for v in (REG_B, CELL_VAL_TAIL):
+        name = f"registration_{v}x128x128" if v == REG_B else f"registration_eval_{v}x128x128"
+        c = costs[name]
+        bnd, by, terms = sinkhorn_warm_bound(*c.shape)
+        timing[name] = {
+            "ms": time_ms(lambda: sk.sinkhorn_warm(c, **REG_SINK), reps=9, ahead=True),
+            "plain_ms": time_ms(lambda: emd2_approx(c, return_potentials=True, **REG_SINK),
+                                reps=3),
+            "bound_ms": bnd, "bound_by": by, "bound_terms": terms}
+    emit({"phase": "kernel_check", "kernel": "sinkhorn_warm", "checks": report,
+          "timing": timing})
+    t = timing[f"registration_{REG_B}x128x128"]
+    return {"name": "sinkhorn_warm", "route": "cuda",
+            "source": "shwd_torch/csrc/sinkhorn_warm.cu",
+            "replaces": "none (shwd_tpu/ops/sinkhorn.py::emd2_approx is plain jnp)",
+            "max_abs_err": max(max(r["f_abs_err"], r["g_abs_err"]) for r in report.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "eval": timing[f"registration_eval_{CELL_VAL_TAIL}x128x128"]}
 
 
 def check_chamfer(dev):
@@ -1278,6 +1360,8 @@ def phase_registration(dev, log_dir):
           f"registration: K3 launched {sink['launches']['sinkhorn_points']} "
           f"times, expected {want}")
     check_fused_launches("hybrid", hyb, "auction_assignment", 2, 1)
+    # one cold solve a train step (phi's inner solve) and a validation batch
+    check_fused_launches("hybrid", hyb, "sinkhorn_warm", 1, 1)
     check(hyb["launches"]["sinkhorn_points"] == 0,
           f"registration hybrid: launches {hyb['launches']}")
     # the cd criterion is the dense differentiable Chamfer in both passes
@@ -1296,7 +1380,8 @@ def phase_registration(dev, log_dir):
     check(sink["val_trans_error_last"] < sink["val_trans_error_first"],
           "registration: val translation error did not fall")
     return ({"sinkhorn_points": sink["launches"]["sinkhorn_points"],
-             "auction_assignment": hyb["launches"]["auction_assignment"]}, sink_run, runs)
+             "auction_assignment": hyb["launches"]["auction_assignment"],
+             "sinkhorn_warm": hyb["launches"]["sinkhorn_warm"]}, sink_run, runs)
 
 
 def tool(name):
@@ -2352,8 +2437,9 @@ def phase_launches_per_call(dev, kernels):
     path's shape: the kernel nodes of a CUDA graph captured around the
     call, which must be 1 and the graph's only node, for the warm-up, the
     auction (prices and eps0 given, as every main path gives them), the
-    fused Sinkhorn, the Chamfer and phi's forward. Runs after the main
-    paths. (It read
+    fused Sinkhorn, the Chamfer and phi's forward; the small-problem
+    warm-up's graph holds its temperatures' torch ops besides (captured
+    alone for the comparison). Runs after the main paths. (It read
     torch.profiler's timeline until PR 6; on the card that timeline at
     times held no kernel of these libraries at all, up to ten traces
     running, while it held PyTorch's own kernels.)"""
@@ -2365,6 +2451,7 @@ def phase_launches_per_call(dev, kernels):
     from shwd_torch.ops import sinkhorn_kernels as sk
     from shwd_torch.ops.chamfer import chamfer_tiled
     from shwd_torch.ops.costs import cost_matrix
+    from shwd_torch.ops.sinkhorn import eps_schedule
     src, tgt = flow_clouds(dev)
     phi_layers = kernel_layers(make_flow(
         "Residual", 5, generator=torch.Generator(device=dev).manual_seed(0)))
@@ -2375,20 +2462,30 @@ def phase_launches_per_call(dev, kernels):
     prices0 = (-sk.emd2_warmup(flow_cost, **kw)[2]).contiguous()
     eps0 = au._hybrid_eps0(flow_cost, EPS_FINAL)
     reg_x, reg_y = registration_clouds(dev)
+    reg_cost = cost_matrix(reg_x, reg_y, "lp", 2.0).contiguous()
     calls = {
         "emd2_warmup": lambda: sk.emd2_warmup(flow_cost, **kw),
         "auction_assignment": lambda: au.auction_assignment(
             flow_cost, EPS_FINAL, max_sweeps=4000, prices0=prices0, eps0=eps0),
         "sinkhorn_points": lambda: sp._fused_forward(reg_x, reg_y, "lp", 2.0, **REG_SINK),
         "chamfer_tiled": lambda: chamfer_tiled(fx, fy),
-        "residual_chain_forward": lambda: rc.chain_forward(phi_x, phi_layers)}
+        "residual_chain_forward": lambda: rc.chain_forward(phi_x, phi_layers),
+        "sinkhorn_warm": lambda: sk.sinkhorn_warm(reg_cost, **REG_SINK)}
+    # what a call runs besides its kernel: the small-problem warm-up's
+    # temperatures (emd2_approx's torch expression)
+    around = {"sinkhorn_warm": lambda: eps_schedule(reg_cost, REG_SINK["eps"],
+                                                    REG_SINK["num_scales"])}
     seen = {}
     for k in kernels:
         kinds = graph_nodes(calls[k["name"]])
         seen[k["name"]] = kinds
-        k["launches_per_call"] = kinds.count(0)
-        check(kinds == [0], f"{k['name']}: a call captured as graph nodes {kinds}, "
-              f"expected one kernel node")
+        besides = graph_nodes(around[k["name"]]) if k["name"] in around else []
+        if besides:
+            seen[f"{k['name']} (its temperatures)"] = besides
+        k["launches_per_call"] = kinds.count(0) - besides.count(0)
+        check(sorted(kinds) == sorted(besides + [0]),
+              f"{k['name']}: a call captured as graph nodes {kinds}, expected "
+              f"one kernel node besides {besides}")
     emit({"phase": "launches_per_call", "graph_node_types": seen})
 
 
@@ -2409,6 +2506,7 @@ def main() -> int:
     k3 = check_sinkhorn_points(dev)
     k4 = check_chamfer(dev)
     k5 = check_residual_chain(dev)
+    k6 = check_sinkhorn_warm(dev)
     k1["launches"] = launches["emd2_warmup"]
     k2["launches"] = launches["auction_assignment"]
     check_auction_seeded(k2, captured)
@@ -2423,6 +2521,7 @@ def main() -> int:
         reg_launches, (sink_cfg, sink_res), reg_runs = phase_registration(dev, log_dir)
         k2["launches_registration"] = reg_launches["auction_assignment"]
         k3["launches"] = reg_launches["sinkhorn_points"]
+        k6["launches"] = reg_launches["sinkhorn_warm"]
         k3["launches_learns"] = phase_registration_learns(dev, log_dir)
         k3["launches_outliers"] = timed(phase_registration_outliers, dev, log_dir)
         k3["launches_jax_init"] = timed(phase_jax_init, dev, log_dir)
@@ -2450,8 +2549,8 @@ def main() -> int:
                           pseudo_run)
         phase_fused_vs_per_step(dev, refs)
     phase_comparison(dev)
-    phase_launches_per_call(dev, [k1, k2, k3, k4, k5])
-    emit({"kernels": [k1, k2, k3, k4, k5]})
+    phase_launches_per_call(dev, [k1, k2, k3, k4, k5, k6])
+    emit({"kernels": [k1, k2, k3, k4, k5, k6]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("emd2_warmup", "auction", "sinkhorn_points", "chamfer",  # CUDA kernels
-           "residual_chain")
+           "residual_chain", "sinkhorn_warm")
 _HOST_SOURCES = {"network_simplex": _PKG / "runtime" / "emd" / "network_simplex.cpp"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -10,7 +10,8 @@ a thread-block cluster per problem, no host round trip) and runs
 tensor.
 
 The hybrid solver warms the auction's prices with annealed-Sinkhorn duals
-(``_sinkhorn_warm_prices``); its gradient is the optimal permutation / N,
+(``_sinkhorn_warm_prices``, on K1, ``csrc/sinkhorn_warm.cu`` or the plain
+``emd2_approx`` as ``warm_route`` says); its gradient is the optimal permutation / N,
 the envelope gradient of exact EMD.
 """
 
@@ -24,7 +25,8 @@ from .. import _kernels
 from ..parallel.mesh import group_max, group_min
 from ..utils.profiling import device_count, device_span
 from .sinkhorn import emd2_approx
-from .sinkhorn_kernels import emd2_warmup, warmup_supported
+from .sinkhorn_kernels import (emd2_warmup, sinkhorn_warm, sinkhorn_warm_supported,
+                               warmup_supported)
 
 _NEG = -1e30
 _MAX_PHASES = 64          # guards a NaN or infinite eps0 (as the kernel does)
@@ -274,26 +276,49 @@ def _assignment_cost(cost: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
     return picked.mean(-1)
 
 
+def warm_route(on_card: bool, n: int, m: int) -> str:
+    """Which warm-up prices a cold solve of (B, N, M) costs, by device and
+    shape alone. ``on_card``: a (B, N, M) f32 CUDA cost, what the kernels
+    take.
+
+    - ``"emd2_warmup"`` (K1, per-item eps0) once N*M >= 512^2 and the
+      shape passes ``warmup_supported``: the JAX package's rule, with
+      "on the card" for "on the accelerator";
+    - ``"sinkhorn_warm"`` for N, M <= 128: the kernel of ``emd2_approx``'s
+      own iterations (batch-global eps0), one launch;
+    - ``"plain"`` otherwise: the batched ``emd2_approx``, as in JAX.
+    """
+    if on_card and n * m >= 512 * 512 and warmup_supported(n, m):
+        return "emd2_warmup"
+    if on_card and sinkhorn_warm_supported(n, m):
+        return "sinkhorn_warm"
+    return "plain"
+
+
 def _sinkhorn_warm_prices(cost, sink_eps, sink_iters, sink_scales):
     """Annealed-Sinkhorn dual potentials as auction starting prices.
 
-    The dispatch rule is the JAX package's, with ``is_cuda`` for "on the
-    accelerator": the warm-up kernel once N*M >= 512^2 and the shape passes
-    ``warmup_supported``; smaller problems take the plain batched
-    ``emd2_approx`` (batch-global eps0), as they do in JAX. Inside a
-    captured step the warm-up is the device mark ``warm_prices``.
+    The route is ``warm_route``'s, recorded in
+    ``_sinkhorn_warm_prices.last_route``; ``sinkhorn_warm`` and the plain
+    ``emd2_approx`` compute the same function. Inside a captured step the
+    warm-up is the device mark ``warm_prices``.
     """
     cost = cost.detach()
+    on_card = cost.is_cuda and cost.ndim == 3 and cost.dtype == torch.float32
+    route = warm_route(on_card, cost.shape[-2], cost.shape[-1])
+    kw = dict(num_iters=sink_iters, num_scales=sink_scales)
     with device_span("warm_prices"):
-        if (cost.is_cuda and cost.ndim == 3
-                and cost.shape[-2] * cost.shape[-1] >= 512 * 512
-                and warmup_supported(cost.shape[-2], cost.shape[-1])):
-            _, f, g = emd2_warmup(cost.contiguous(), eps=sink_eps,
-                                  num_iters=sink_iters, num_scales=sink_scales)
+        if route == "emd2_warmup":
+            _, _, g = emd2_warmup(cost.contiguous(), eps=sink_eps, **kw)
+        elif route == "sinkhorn_warm":
+            _, g = sinkhorn_warm(cost.contiguous(), eps=sink_eps, **kw)
         else:
-            _, f, g = emd2_approx(cost, eps=sink_eps, num_iters=sink_iters,
-                                  num_scales=sink_scales, return_potentials=True)
-        return -g                  # benefit = -C; dual price ~ g
+            _, _, g = emd2_approx(cost, eps=sink_eps, return_potentials=True, **kw)
+        _sinkhorn_warm_prices.last_route = route
+        return -g              # benefit = -C; dual price ~ g
+
+
+_sinkhorn_warm_prices.last_route = None
 
 
 def _hybrid_eps0(cost: torch.Tensor, eps_final: float) -> torch.Tensor:

@@ -69,6 +69,20 @@ def _plan_cost(cost, f, g, log_a, log_b, eps):
     return torch.sum(p * cost, dim=(-2, -1))
 
 
+def eps_schedule(cost: torch.Tensor, eps: float, num_scales: int) -> torch.Tensor:
+    """``emd2_approx``'s temperatures, (num_scales,) on ``cost``'s device:
+    geometric from eps0 = max|C| over the WHOLE batch down to ``eps``. Made
+    on the device without a host sync; the warm-up kernel
+    (``sinkhorn_kernels.sinkhorn_warm``) reads the same tensor."""
+    # under a data-parallel fit, the max over every rank's block of the batch
+    eps0 = torch.clamp_min(group_max(torch.amax(torch.abs(cost.detach()))), 1e-30)
+    ratios = torch.linspace(0.0, 1.0, num_scales, dtype=cost.dtype,
+                            device=cost.device)
+    # log(eps) as a Python number: a device tensor made from it would be a
+    # synchronising host-to-device copy
+    return torch.exp(torch.log(eps0) * (1 - ratios) + math.log(eps) * ratios)
+
+
 def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
                 num_scales: int = 4, a: torch.Tensor | None = None,
                 b: torch.Tensor | None = None,
@@ -82,13 +96,7 @@ def emd2_approx(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
     With ``return_potentials`` returns (val, f, g).
     """
     a, b, log_a, log_b = _uniform_logs(cost, a, b)
-    # under a data-parallel fit, the max over every rank's block of the batch
-    eps0 = torch.clamp_min(group_max(torch.amax(torch.abs(cost.detach()))), 1e-30)
-    ratios = torch.linspace(0.0, 1.0, num_scales, dtype=cost.dtype,
-                            device=cost.device)
-    # log(eps) as a Python number: a device tensor made from it would be a
-    # synchronising host-to-device copy
-    eps_sched = torch.exp(torch.log(eps0) * (1 - ratios) + math.log(eps) * ratios)
+    eps_sched = eps_schedule(cost, eps, num_scales)
     with torch.no_grad():
         c = cost.detach()
         f = torch.zeros_like(a)

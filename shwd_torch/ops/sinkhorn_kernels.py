@@ -8,6 +8,11 @@ cooperative launch per call) for a CUDA tensor and runs
 tensor. Both follow the Pallas kernel's schedule and formulas: per-item
 eps0 = max|C|, temperatures recomputed from it at each scale, potentials
 not rescaled between temperatures, log-sums guarded at 1e-38.
+
+``sinkhorn_warm`` is the warm-up of smaller problems (N, M <= 128): the
+potentials of ``emd2_approx`` (one batch-global eps0, its temperatures
+read from the device), one launch of ``csrc/sinkhorn_warm.cu`` for a
+CUDA tensor and ``emd2_approx`` itself for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from .. import _kernels
 from ..utils.profiling import device_span
+from .sinkhorn import emd2_approx, eps_schedule
 
 
 def _round_up(x: int, m: int) -> int:
@@ -167,3 +173,64 @@ def emd2_warmup(cost: torch.Tensor, eps: float = 1e-5, num_iters: int = 40,
 
 
 emd2_warmup.launches = 0
+
+
+SINKHORN_WARM_TILE = 128       # the largest N and M of the kernel's register tile
+
+
+def sinkhorn_warm_supported(n: int, m: int) -> bool:
+    """The shapes ``csrc/sinkhorn_warm.cu`` takes: one CTA holds an item's
+    whole (N, M) tile in registers."""
+    return 1 <= n <= SINKHORN_WARM_TILE and 1 <= m <= SINKHORN_WARM_TILE
+
+
+def _warm_lib():
+    lib = _kernels.load("sinkhorn_warm")
+    fn = lib.shwd_sinkhorn_warm
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, cf, ci, ci, vp]
+        fn.restype = ci
+    return lib
+
+
+def sinkhorn_warm(cost: torch.Tensor, eps: float = 5e-3, num_iters: int = 50,
+                  num_scales: int = 4):
+    """The dual potentials of ``emd2_approx(cost, eps, num_iters,
+    num_scales, return_potentials=True)`` for (B, N, M) costs with uniform
+    marginals: returns (f (B, N), g (B, M)), forward only.
+
+    A CUDA tensor goes through the CUDA kernel: the temperatures are
+    ``emd2_approx``'s own (``eps_schedule``, batch-global eps0, made on the
+    device), then one launch runs every iteration, no host sync. A CPU
+    tensor runs ``emd2_approx`` itself.
+    """
+    if not cost.is_cuda:
+        _, f, g = emd2_approx(cost, eps=eps, num_iters=num_iters,
+                              num_scales=num_scales, return_potentials=True)
+        return f, g
+    if cost.dtype != torch.float32 or cost.ndim != 3:
+        raise ValueError(f"sinkhorn_warm needs a (B, N, M) f32 cost, got "
+                         f"{tuple(cost.shape)} {cost.dtype}")
+    if not cost.is_contiguous():
+        raise ValueError("sinkhorn_warm needs a contiguous cost")
+    b, n, m = cost.shape
+    if b < 1 or not sinkhorn_warm_supported(n, m):
+        raise ValueError(f"sinkhorn_warm takes 1 <= N, M <= {SINKHORN_WARM_TILE} "
+                         f"and a batch, got {tuple(cost.shape)}")
+    if num_iters < 0 or num_scales < 0:
+        raise ValueError("sinkhorn_warm needs num_iters >= 0 and num_scales >= 0")
+    cost = cost.detach()
+    eps_sched = eps_schedule(cost, eps, num_scales).contiguous()
+    f = torch.empty(b, n, dtype=torch.float32, device=cost.device)
+    g = torch.empty(b, m, dtype=torch.float32, device=cost.device)
+    with torch.cuda.device(cost.device):
+        rc = _warm_lib().shwd_sinkhorn_warm(
+            cost.data_ptr(), eps_sched.data_ptr(), f.data_ptr(), g.data_ptr(), b, n,
+            m, 1.0 / n, 1.0 / m, num_iters, num_scales, _kernels.stream_ptr(cost))
+    _kernels.check(rc, "sinkhorn_warm")
+    sinkhorn_warm.launches += 1
+    return f, g
+
+
+sinkhorn_warm.launches = 0

@@ -72,7 +72,8 @@ def kernel_wrappers() -> dict:
             "residual_chain_forward": residual_chain.chain_forward,
             "residual_chain_backward": residual_chain.chain_backward,
             "residual_chain_grad_reduce": residual_chain.chain_grad_reduce,
-            "residual_chain_power_iteration": residual_chain.chain_power_iteration}
+            "residual_chain_power_iteration": residual_chain.chain_power_iteration,
+            "sinkhorn_warm": sinkhorn_kernels.sinkhorn_warm}
 
 
 def _collect(obj, tensors: list, generators: list, seen: set) -> None:

@@ -161,3 +161,45 @@ def test_duplicate_seed_is_screened():
     assert _is_perm(a.numpy())
     np.testing.assert_allclose(ta._assignment_cost(torch.from_numpy(c), a).numpy(),
                                _lsa(c), rtol=1e-4)
+
+
+@pytest.mark.parametrize("on_card,n,m,route", [
+    (False, 128, 128, "plain"), (False, 7, 9, "plain"), (False, 1200, 1200, "plain"),
+    (True, 128, 128, "sinkhorn_warm"), (True, 100, 120, "sinkhorn_warm"),
+    (True, 7, 9, "sinkhorn_warm"), (True, 1, 1, "sinkhorn_warm"),
+    (True, 128, 129, "plain"), (True, 129, 128, "plain"), (True, 129, 129, "plain"),
+    (True, 511, 513, "plain"),           # N*M one short of 512^2
+    (True, 512, 512, "emd2_warmup"), (True, 256, 1024, "emd2_warmup"),
+    (True, 1200, 1200, "emd2_warmup"),
+    (True, 1664, 1792, "emd2_warmup"),   # warmup_supported's edge ...
+    (True, 1664, 1920, "plain"),         # ... and one tile of columns past it
+])
+def test_warm_route_by_device_and_shape(on_card, n, m, route):
+    """The cold solve's warm-up is chosen by device and shape alone: K1 at
+    N*M >= 512^2 within its gate (the JAX package's rule), the small-problem
+    kernel at N, M <= 128, the plain emd2_approx otherwise."""
+    assert ta.warm_route(on_card, n, m) == route
+
+
+@pytest.mark.parametrize("shape", [(4, 128, 128), (3, 100, 120), (2, 7, 9)])
+def test_warm_prices_on_the_cpu_are_the_plain_potentials(shape):
+    """On a CPU tensor the warm prices are -g of emd2_approx, bit for bit,
+    and the small-problem kernel's wrapper runs emd2_approx itself,
+    launching nothing."""
+    from shwd_torch.ops import sinkhorn_kernels as tk
+    from shwd_torch.ops.sinkhorn import emd2_approx
+
+    b, n, m = shape
+    rng = np.random.default_rng(n + m)
+    x = rng.normal(size=(b, n, 3)).astype(np.float32)
+    y = rng.normal(size=(b, m, 3)).astype(np.float32)
+    c = torch.from_numpy(np.sum((x[:, :, None] - y[:, None]) ** 2, -1).astype(np.float32))
+    kw = dict(eps=5e-3, num_iters=50, num_scales=4)
+    _, f, g = emd2_approx(c, return_potentials=True, **kw)
+    prices = ta._sinkhorn_warm_prices(c, kw["eps"], kw["num_iters"], kw["num_scales"])
+    assert ta._sinkhorn_warm_prices.last_route == "plain"
+    assert torch.equal(prices, -g)
+    launches = tk.sinkhorn_warm.launches
+    f2, g2 = tk.sinkhorn_warm(c, **kw)
+    assert torch.equal(f2, f) and torch.equal(g2, g)
+    assert tk.sinkhorn_warm.launches == launches

@@ -231,6 +231,129 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
         ta.auction_assignment(c.transpose(1, 2))
 
 
+# -- the small-problem warm-up: emd2_approx's iterations in one launch ------------
+
+WARM_KW = dict(eps=5e-3, num_iters=50, num_scales=4)     # the hybrid cells' warm-up
+# the kernel's f and g against the plain emd2_approx on the card, as a share
+# of the item's max |C|: the two differ by rounding only (z through the f32
+# reciprocal of e in one fused multiply-add, ex2.approx, the kernel's sum
+# order). Measured on an H100 at 1.6e-6 at most over these shapes and seeds
+# (3.9e-6 absolute at max |C| 6.4); 1e-5 leaves 6x room and is ~2000x under
+# the 2e-2 that a per-item eps0 moves f by
+WARM_RTOL = 1e-5
+
+
+def _warm_gap(a, b, c):
+    """max |a - b| per item over the item's max |C|, the largest item's."""
+    scale = c.abs().amax(dim=(1, 2))
+    return float(((a - b).abs().amax(dim=1) / scale).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 128, 128), (25, 128, 128), (3, 100, 120),
+                                   (2, 7, 9)])
+def test_sinkhorn_warm_kernel_matches_plain(cuda, shape):
+    """sinkhorn_warm's f and g against emd2_approx's on the card (the train
+    step's and the validation pass's last batch, a ragged batch and a tiny
+    one), within WARM_RTOL of max |C|; two calls give the same bits (the
+    column pairs merge in a fixed order)."""
+    from shwd_torch.ops.sinkhorn import emd2_approx
+    c = torch.from_numpy(_costs(*shape, seed=30)).to(cuda) / 12
+    launches = tk.sinkhorn_warm.launches
+    f1, g1 = tk.sinkhorn_warm(c, **WARM_KW)
+    f2, g2 = tk.sinkhorn_warm(c, **WARM_KW)
+    _, fp, gp = emd2_approx(c, return_potentials=True, **WARM_KW)
+    torch.cuda.synchronize()
+    assert tk.sinkhorn_warm.launches == launches + 2
+    assert torch.equal(f1, f2) and torch.equal(g1, g2)
+    assert bool(torch.isfinite(f1).all() and torch.isfinite(g1).all())
+    assert _warm_gap(f1, fp, c) <= WARM_RTOL and _warm_gap(g1, gp, c) <= WARM_RTOL
+
+
+@pytest.mark.gpu
+def test_sinkhorn_warm_kernel_follows_the_batch_eps0(cuda):
+    """Items whose cost scales differ by 100x: the kernel anneals both from
+    the batch's one eps0, as emd2_approx does, and so ends far from the
+    potentials of the small item solved alone (its own eps0)."""
+    from shwd_torch.ops.sinkhorn import emd2_approx
+    c = torch.from_numpy(_costs(2, 128, 128, seed=31)).to(cuda) / 12
+    c[1] *= 100
+    f, g = tk.sinkhorn_warm(c, **WARM_KW)
+    _, fp, gp = emd2_approx(c, return_potentials=True, **WARM_KW)
+    _, f_alone, _ = emd2_approx(c[:1], return_potentials=True, **WARM_KW)
+    torch.cuda.synchronize()
+    assert _warm_gap(f, fp, c) <= WARM_RTOL and _warm_gap(g, gp, c) <= WARM_RTOL
+    assert float((f[0] - f_alone[0]).abs().max()) > 1e-2
+
+
+@pytest.mark.gpu
+def test_sinkhorn_warm_kernel_is_one_node_without_host_sync(cuda):
+    """A call captured in a CUDA graph adds one kernel node to those of its
+    temperature schedule (torch ops); the replay on a new cost equals a
+    direct call on it, bit for bit; the call and the hybrid solver's warm
+    prices make no host sync; bad input raises."""
+    from shwd_torch.ops.sinkhorn import eps_schedule
+    from shwd_torch.utils.graphs import graph_node_types
+    c1 = torch.from_numpy(_costs(128, 128, 128, seed=32)).to(cuda) / 12
+    c2 = torch.from_numpy(_costs(128, 128, 128, seed=33)).to(cuda) / 12
+    static = c1.clone()
+
+    def kernel_nodes(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out = fn()
+        return graph, out, graph_node_types(graph).count(0)
+
+    _, _, schedule = kernel_nodes(lambda: eps_schedule(static, 5e-3, 4))
+    graph, out, nodes = kernel_nodes(lambda: tk.sinkhorn_warm(static, **WARM_KW))
+    assert nodes == schedule + 1
+    static.copy_(c2)
+    graph.replay()
+    want = tk.sinkhorn_warm(c2, **WARM_KW)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tk.sinkhorn_warm(c1, **WARM_KW)
+        ta._sinkhorn_warm_prices(c1, 5e-3, 50, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ta._sinkhorn_warm_prices.last_route == "sinkhorn_warm"
+    for bad in (c1.double(), c1.transpose(1, 2), torch.zeros(2, 129, 64, device=cuda)):
+        with pytest.raises(ValueError):
+            tk.sinkhorn_warm(bad)
+
+
+@pytest.mark.gpu
+def test_cold_hybrid_solve_on_the_kernels_prices(cuda):
+    """A cold hybrid_assignment_warm at 128 x 128 x 128 on the kernel's
+    prices: every item a permutation within 1e-6 of scipy's f64 optimum,
+    with sweeps within 1.5x of an auction priced by the plain emd2_approx."""
+    from shwd_torch.ops.sinkhorn import emd2_approx
+    c = torch.from_numpy(_costs(128, 128, 128, seed=34, spread=0.3)).to(cuda)
+    launches = tk.sinkhorn_warm.launches
+    av, _, _, sweeps = ta.hybrid_assignment_warm(c, None, None, use_warm=False,
+                                                 sink_eps=5e-3, sink_iters=50,
+                                                 sink_scales=4)
+    assert tk.sinkhorn_warm.launches == launches + 1
+    _, _, gp = emd2_approx(c, return_potentials=True, **WARM_KW)
+    _, _, plain_sweeps = ta.auction_assignment(c, 1e-7, max_sweeps=4000,
+                                               prices0=(-gp).contiguous(),
+                                               eps0=ta._hybrid_eps0(c, 1e-7))
+    torch.cuda.synchronize()
+    assert _is_perm(av.cpu().numpy())
+    gap = ta._assignment_cost(c.double(), av).cpu().numpy() - _lsa(c.cpu().numpy())
+    assert gap.max() <= 1e-6, gap.max()
+    ratio = float(sweeps.sum()) / float(plain_sweeps.sum())
+    assert 1 / 1.5 <= ratio <= 1.5, (int(sweeps.sum()), int(plain_sweeps.sum()))
+
+
+def _is_perm(a):
+    return all(sorted(row.tolist()) == list(range(len(row))) for row in a)
+
+
 def _clouds(b, n, m, seed, dev):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, n, 3)).astype(np.float32)
